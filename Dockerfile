@@ -1,6 +1,7 @@
-# TPU-native hydrus video deduplicator.
+# Hydrus video deduplicator with a JAX device path.
 # CPU image by default (native C++ hasher); build with
-#   --build-arg EXTRAS=tpu  on a TPU VM for the device compute path.
+#   --build-arg EXTRAS=cuda  on an NVIDIA GPU host for the device compute
+# path (JAX's CUDA 12 install, jax[cuda12]).
 
 FROM python:3.12-slim AS base
 

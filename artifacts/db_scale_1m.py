@@ -1,9 +1,8 @@
-"""MEASURED 1M-row stage-2/3 DB machinery (VERDICT r2 weak #5, second half:
-"stage 2's per-row SQLite loop has only been run to 266k").
+"""MEASURED 1M-row stage-2/3 DB machinery.
 
 Stage 2 (`dedup.process_phashed_file_queue`, dedup.py:599-642) drains the
 phashed_file_queue into the files/phash/map tables row by row — 4 SQL
-statements per row plus the tree-descent decision. On the TPU search route
+statements per row plus the tree-descent decision. On the device search route
 the per-insert VP-tree descent is DEFERRED (build_tree=False;
 `_reconcile_tree` reconciles on demand if the tree path is ever chosen),
 so stage 2 must stay linear-SQLite-bound at corpus scale. This driver
@@ -13,7 +12,7 @@ comparison.
 What it does:
   1. synthesizes 1M (file_hash, 8-frame phash) rows straight into
      phashed_file_queue (simulating stage-1 output), executemany-batched;
-  2. runs the production `process_phashed_file_queue` (TPU deferral route)
+  2. runs the production `process_phashed_file_queue` (device deferral route)
      + `run_maintenance` at 1M rows — wall, rows/s, RSS delta, DB size;
   3. re-runs stage 2 on a fresh DB at TREE_N rows with build_tree=True
      (the reference's per-insert descent, db/vptree.py) and reports the
@@ -139,16 +138,16 @@ def main():
     # --- per-row loop rate ladder (flat now that the map is indexed) ---
     per_row_ladder(DedupeDB, [25_000, 100_000, 400_000])
 
-    # --- 1M rows, production TPU route (set-based batched drain) ---
+    # --- 1M rows, production device route (set-based batched drain) ---
     with tempfile.TemporaryDirectory() as dbdir:
         DedupeDB.set_db_dir(dbdir)
         DedupeDB.create_db()
         db = DedupeDB.DedupeDb(DedupeDB.get_db_dir(), DedupeDB.get_db_name())
         db.init_connection()
         fill_queue(db, N)
-        t_q = stage23(db, "tpu", f"tpu-route {N}")
+        t_q = stage23(db, "tpu", f"device-route {N}")
         sz = os.path.getsize(os.path.join(dbdir, DedupeDB.get_db_name())) / 1e9
-        log(f"[tpu-route {N}] DB size {sz:.2f}G")
+        log(f"[device-route {N}] DB size {sz:.2f}G")
         db.close()
 
     # --- TREE_N rows, per-insert descent (reference semantics) ---

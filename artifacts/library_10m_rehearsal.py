@@ -41,6 +41,7 @@ from __future__ import annotations
 import os
 import resource
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -128,13 +129,14 @@ def main():
     # A 10M-file library's UNIQUE-index working set is ~0.4 GB per 1M files
     # (random-order file hashes + 256-byte phash blobs); the default 256 MiB
     # page cache thrashes at this scale (measured decline in
-    # artifacts/drain_pragma_ab.py). Size the cache like a real 10M-library
+    # Size the cache like a real 10M-library
     # deployment would — the knob exists for exactly this.
     os.environ.setdefault("HVD_SQLITE_CACHE_MB", "4096")
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from hydrus_video_deduplicator_tpu import device
+
+    device.enable_compile_cache()
     log(f"device: {jax.devices()[0]}; corpus={N_CORPUS} new={N_NEW}")
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
@@ -145,7 +147,7 @@ def main():
     from hydrus_video_deduplicator_tpu.client import HVDClient
     from hydrus_video_deduplicator_tpu.db import vptree
 
-    workdir = os.environ.get("HVD_REHEARSAL_DIR", "/root/rehearsal_10m")
+    workdir = os.environ.get("HVD_REHEARSAL_DIR") or tempfile.mkdtemp(prefix="hvd_rehearsal_")
     os.makedirs(workdir, exist_ok=True)
     DedupeDB.set_db_dir(workdir)
     if not os.path.exists(os.path.join(workdir, DedupeDB.get_db_name())):

@@ -1,17 +1,18 @@
-"""hydrus_video_deduplicator_tpu — a TPU-native perceptual video-deduplication framework.
+"""hydrus_video_deduplicator_tpu — an accelerated perceptual video-deduplication framework.
 
 Re-implements the full capability surface of hydrusvideodeduplicator (reference:
-``/root/reference``, v0.11.2) with a TPU-first architecture:
+the reference, v0.11.2) with a JAX device path (an NVIDIA GPU today):
 
 - ``vpdq``      — the PDQ/VPDQ perceptual hash: shared exact-math constants, a pure
                   numpy oracle, and the canonical ``VpdqHash`` value type.
 - ``native``    — C++ CPU implementation (threaded VideoHasher, matchHash) loaded
-                  via ctypes; the bit-exactness oracle and the no-TPU fallback.
+                  via ctypes; the bit-exactness oracle and the no-device fallback.
 - ``models``    — the hash pipeline expressed as pure JAX (XLA) functions.
-- ``ops``       — Pallas TPU kernels for the hot paths (fused frame hashing,
-                  bit-packed MXU Hamming similarity).
-- ``parallel``  — multi-chip sharding: mesh construction and the sharded
-                  all-pairs similarity engine (pjit/shard_map over ICI).
+- ``ops``       — device compute for the search (bit-packed int8 Hamming
+                  similarity, segment kernels, pair verification).
+- ``parallel``  — multi-device sharding: mesh construction and the sharded
+                  all-pairs similarity engine (shard_map over a 1-D mesh).
+- ``device``    — every platform decision, in one place.
 - ``decode``    — video decode + 1 fps frame sampling + 512x512 nearest rescale
                   (OpenCV / Pillow-animation / Y4M backends).
 - ``db``        — SQLite persistence, schema-compatible with the reference

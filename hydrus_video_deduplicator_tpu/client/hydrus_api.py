@@ -14,15 +14,20 @@ Conventions:
   409 DeleteLocked, 400 MissingParameter
 - ``verify_cert=None`` disables TLS verification (Hydrus uses a
   self-signed cert by default)
+- the transport is the standard library's ``urllib.request``
+  (:class:`UrllibTransport`), so the client needs no HTTP package
 """
 
 from __future__ import annotations
 
+import builtins
 import enum
 import json
+import ssl
+import urllib.error
+import urllib.request
 from typing import TYPE_CHECKING, Any
-
-import requests
+from urllib.parse import urlencode
 
 if TYPE_CHECKING:
     from collections.abc import Iterable, Mapping
@@ -37,12 +42,67 @@ class HydrusAPIException(Exception):
     """Base class for all errors raised by this module."""
 
 
-class ConnectionError(HydrusAPIException, requests.ConnectionError):
+class ConnectionError(HydrusAPIException, builtins.ConnectionError):
     """Network-level failure reaching the Hydrus client."""
 
 
+class Response:
+    """An HTTP response read in full: status, body bytes and headers."""
+
+    def __init__(self, status_code: int, content: bytes, headers: "Mapping[str, str] | None" = None):
+        self.status_code = status_code
+        self.content = content
+        self.headers = dict(headers or {})
+
+    @property
+    def text(self) -> str:
+        return self.content.decode(HYDRUS_METADATA_ENCODING, errors="replace")
+
+    def json(self) -> Any:
+        return json.loads(self.content)
+
+
+class UrllibTransport:
+    """HTTP over the standard library's urllib.request.
+
+    ``request`` takes the keywords the client passes (params, data,
+    headers, verify, stream): ``verify`` is False (no TLS verification),
+    True, or a CA bundle path; ``stream`` is accepted and ignored — bodies
+    are read in full."""
+
+    def request(
+        self,
+        method: str,
+        url: str,
+        params: "Mapping[str, Any] | None" = None,
+        data: str | bytes | None = None,
+        headers: "Mapping[str, str] | None" = None,
+        verify: bool | str = True,
+        stream: bool = False,
+    ) -> Response:
+        del stream
+        if params:
+            url += ("&" if "?" in url else "?") + urlencode(params)
+        if isinstance(data, str):
+            data = data.encode()
+        req = urllib.request.Request(url, data=data, headers=dict(headers or {}), method=method)
+        context = None
+        if url.startswith("https"):
+            if verify is False:
+                context = ssl._create_unverified_context()
+            elif isinstance(verify, str):
+                context = ssl.create_default_context(cafile=verify)
+        try:
+            with urllib.request.urlopen(req, context=context) as resp:
+                return Response(resp.status, resp.read(), resp.headers)
+        except urllib.error.HTTPError as exc:
+            return Response(exc.code, exc.read(), exc.headers)
+        except (urllib.error.URLError, OSError) as exc:
+            raise ConnectionError(str(exc)) from exc
+
+
 class APIError(HydrusAPIException):
-    def __init__(self, response: requests.Response):
+    def __init__(self, response: Response):
         super().__init__(response.text)
         self.response = response
 
@@ -252,17 +312,17 @@ class Client:
         self,
         access_key: str | None = None,
         api_url: str = DEFAULT_API_URL,
-        session: requests.Session | None = None,
+        session: UrllibTransport | None = None,
         verify_cert: str | None = None,
     ):
         self.access_key = access_key
         self.api_url = api_url.rstrip("/")
         self.verify_cert = verify_cert
-        self.session = session or requests.Session()
+        self.session = session or UrllibTransport()
 
     # -- plumbing ---------------------------------------------------------
 
-    def _request(self, method: str, path: str, **kwargs) -> requests.Response:
+    def _request(self, method: str, path: str, **kwargs) -> Response:
         headers = kwargs.setdefault("headers", {})
         if self.access_key is not None:
             headers["Hydrus-Client-API-Access-Key"] = self.access_key
@@ -270,19 +330,8 @@ class Client:
         if json_payload is not None:
             kwargs["data"] = _jdump(json_payload)
             headers["Content-Type"] = "application/json"
-        if self.verify_cert is None:
-            kwargs["verify"] = False
-            try:
-                requests.packages.urllib3.disable_warnings()
-            except Exception:
-                pass
-        else:
-            kwargs["verify"] = self.verify_cert
-
-        try:
-            response = self.session.request(method, self.api_url + path, **kwargs)
-        except requests.RequestException as exc:
-            raise ConnectionError(*exc.args)
+        kwargs["verify"] = False if self.verify_cert is None else self.verify_cert
+        response = self.session.request(method, self.api_url + path, **kwargs)
 
         if response.status_code >= 400:
             code = response.status_code
@@ -356,7 +405,7 @@ class Client:
             params["return_hashes"] = _jdump(return_hashes)
         return self._request("GET", "/get_files/search_files", params=params).json()
 
-    def get_file(self, hash_: str | None = None, file_id: int | None = None) -> requests.Response:
+    def get_file(self, hash_: str | None = None, file_id: int | None = None) -> Response:
         if (hash_ is None) == (file_id is None):
             raise ValueError("Exactly one of hash_, file_id is required")
         params: dict[str, Any] = {}
@@ -368,7 +417,7 @@ class Client:
 
     def get_thumbnail(
         self, hash_: str | None = None, file_id: int | None = None
-    ) -> requests.Response:
+    ) -> Response:
         if (hash_ is None) == (file_id is None):
             raise ValueError("Exactly one of hash_, file_id is required")
         params: dict[str, Any] = {}
@@ -387,7 +436,7 @@ class Client:
         render_quality: int | None = None,
         width: int | None = None,
         height: int | None = None,
-    ) -> requests.Response:
+    ) -> Response:
         """Render the file to an image format (e.g. a PSD to PNG)."""
         if (hash_ is None) == (file_id is None):
             raise ValueError("Exactly one of hash_, file_id is required")

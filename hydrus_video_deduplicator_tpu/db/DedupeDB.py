@@ -158,8 +158,8 @@ class DedupeDb:
         #   cache_size: SQLite's default ~2 MiB page cache thrashes once
         #     the UNIQUE-index B-trees outgrow it (file hashes and phash
         #     blobs arrive in random key order); the 10M-library stage-2
-        #     drain measured a 36k -> 6k rows/s decline from exactly this
-        #     (artifacts/drain_pragma_ab.py). HVD_SQLITE_CACHE_MB tunes it.
+        #     drain measured a 36k -> 6k rows/s decline from exactly this.
+        #     HVD_SQLITE_CACHE_MB tunes it.
         #   temp_store MEMORY: the batched drain stages each batch in a
         #     temp table (drain_phashed_queue_batch).
         #   synchronous NORMAL: commits are resume checkpoints — app-crash
@@ -185,8 +185,8 @@ class DedupeDb:
                 self.execute(pragma)
             except sqlite3.OperationalError:  # pragma: no cover - exotic builds
                 pass
-        # One-time for reference-created DBs. Tolerate read-only files
-        # (ADVICE r3 #3): the index is a perf fix, not a correctness
+        # One-time for reference-created DBs. Tolerate read-only files:
+        # the index is a perf fix, not a correctness
         # requirement, so opening must not fail on read-only media.
         try:
             self.ensure_indices()
@@ -260,7 +260,7 @@ class DedupeDb:
                 ).fetchone()[0]
                 if n > 100_000:
                     # a one-time CREATE INDEX on ~1M rows can take a while;
-                    # say so instead of appearing hung at open (ADVICE r3 #3)
+                    # say so instead of appearing hung at open
                     log.info(
                         "building one-time hash_id index over %d rows"
                         " (speeds up search/stage 2; may take a minute)...", n,
@@ -456,7 +456,7 @@ class DedupeDb:
         (add_file + add_perceptual_hash + associate_file_with_perceptual_hash
         (build_tree=False) + queue DELETE), but ~6 statements per BATCH
         instead of ~10 per ROW — the per-row python/SQLite loop measured
-        ~1k rows/s at 1M queue rows (artifacts/db_scale_1m_r03.log), an
+        ~1k rows/s at 1M queue rows, an
         ~17-minute stage 2 the reference's own loop shares
         (/root/reference/src/hydrusvideodeduplicator/dedup.py:253-294)."""
         self.execute(

@@ -1,11 +1,11 @@
-"""SQLite-backed corpus blob column for the TPU search engine.
+"""SQLite-backed corpus blob column for the device search engine.
 
 The engine's column side needs three access patterns over the corpus
 perceptual hashes (parallel/engine.py): per-video frame counts up front
 (metadata), ONE ordered streaming pass to fill the device staging, and
 sparse random access at hit-emission/verification time. Holding the
-whole corpus as a Python list of blobs costs gigabytes at 10M videos
-(VERDICT r3 item 3); this view keeps only the hash_id order and frame
+whole corpus as a Python list of blobs costs gigabytes at 10M videos;
+this view keeps only the hash_id order and frame
 counts resident (~16 bytes/video) and fetches blob bytes from SQLite in
 batches (streaming) or singly through a small LRU (random access).
 

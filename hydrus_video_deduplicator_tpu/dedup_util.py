@@ -88,3 +88,33 @@ def print_and_log(logger: logging.Logger, msg: str, severity: "Severity" = loggi
     color = severity_to_color(severity)
     _rich_print(f"{color}{msg}" if color else msg)
     logger.log(severity, msg)
+
+
+class NoProgress:
+    """Stand-in for ``tqdm`` when it is not installed: the same context
+    manager, counters and methods, and no output."""
+
+    def __init__(self, iterable=None, total=None, **_kwargs):
+        self.iterable = iterable
+        self.total = total
+        self.n = 0
+
+    def __enter__(self) -> "NoProgress":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def __iter__(self):
+        for item in self.iterable or ():
+            self.n += 1
+            yield item
+
+    def update(self, n: int = 1) -> None:
+        self.n += n
+
+    def refresh(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -41,29 +41,19 @@ class ExitException(SystemExit):
     pass
 
 
-def _enable_jax_compile_cache(db_dir: Path) -> None:
-    """Persist compiled XLA/Mosaic programs next to the dedupe database.
+def _enable_jax_compile_cache() -> None:
+    """Persist compiled device programs across runs (device.py's rule:
+    JAX_COMPILATION_CACHE_DIR when set, else <checkout>/.jax_cache).
 
-    The device search engine compiles one fused kernel per frame-count
-    bucket-pair shape (seconds to minutes each on TPU); without a
-    persistent cache every invocation recompiles them all. Honors an
-    existing user-configured cache dir.
+    The search engine compiles one program per frame-count bucket-pair
+    shape and one per sweep size class; without a persistent cache every
+    invocation recompiles them all.
     """
+    from . import device
+
     try:
-        import os
-
-        import jax
-
-        if jax.config.jax_compilation_cache_dir is None:
-            # HVD_JAX_CACHE_DIR shares one cache across databases (the
-            # acceptance suite uses it: each test's fresh tmp db dir would
-            # otherwise recompile every XLA/Mosaic program from cold)
-            cache_dir = os.environ.get("HVD_JAX_CACHE_DIR") or str(
-                db_dir / ".jax_cache"
-            )
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # jax absent or too old: CPU-only install, no cache
+        device.enable_compile_cache()
+    except ImportError:  # jax absent: CPU-only install, no cache
         pass
 
 
@@ -127,7 +117,7 @@ def main(
         format=" %(asctime)s - %(name)s: %(message)s", datefmt="%H:%M:%S", level=loglevel
     )
     logger = logging.getLogger("main")
-    logger.debug("Starting Hydrus Video Deduplicator (TPU edition).")
+    logger.debug("Starting Hydrus Video Deduplicator (device edition).")
 
     def exit_from_failure() -> "NoReturn":
         print_and_log(logger, "Exiting due to failure...")
@@ -137,7 +127,7 @@ def main(
         logging.disable()
 
     DedupeDB.set_db_dir(Path(dedup_database_dir))
-    _enable_jax_compile_cache(Path(dedup_database_dir))
+    _enable_jax_compile_cache()
 
     if overwrite is not None:
         pretty = "--" + ("" if overwrite else "no-") + "overwrite"
@@ -302,22 +292,23 @@ def _build_cli():
         "--search-backend",
         default="auto",
         type=click.Choice(["auto", "tree", "tpu"]),
-        help="Duplicate-search engine: VP-tree, exact TPU all-pairs, or auto.",
+        help="Duplicate-search engine: VP-tree, exact all-pairs on the device"
+        " (GPU; value 'tpu'), or auto.",
     )
     @click.option(
         "--search-prefilter",
         default="auto",
         type=click.Choice(["auto", "reps", "none"]),
-        help="Exact scene-representative prune for the TPU search engine: "
+        help="Exact scene-representative prune for the device search engine: "
         "auto measures corpus compression, reps forces it, none disables.",
     )
     @click.option(
         "--hash-backend",
         default="auto",
         type=click.Choice(["auto", "native", "tpu"]),
-        help="Perceptual-hash engine: threaded native CPU, device-batched TPU,"
-        " or auto (TPU when the batch is large and the measured host->device"
-        " link can feed it).",
+        help="Perceptual-hash engine: threaded native CPU, device-batched GPU"
+        " (value 'tpu'), or auto (the GPU when one is present and the batch is"
+        " large).",
     )
     @click.option(
         "--decode-backend",
@@ -372,7 +363,7 @@ def _build_cli():
 
 
 def run_main(gui: bool = False) -> None:
-    print(f"[blue] Hydrus Video Deduplicator TPU {__version__} [/]")
+    print(f"[blue] Hydrus Video Deduplicator {__version__} [/]")
     want_gui = gui or bool(int(config.HVD_GUI or 0)) or (
         len(sys.argv) > 1 and sys.argv[1] == "--gui"
     )

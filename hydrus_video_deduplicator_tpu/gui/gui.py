@@ -260,7 +260,7 @@ class MainWindow(QMainWindow):
 
     def __init__(self):
         super().__init__()
-        self.setWindowTitle(f"Hydrus Video Deduplicator TPU {__version__}")
+        self.setWindowTitle(f"Hydrus Video Deduplicator {__version__}")
         self.resize(760, 640)
 
         self.worker = Worker()
@@ -329,19 +329,19 @@ class MainWindow(QMainWindow):
         self.search_prefilter_combo = QComboBox()
         self.search_prefilter_combo.addItems(["auto", "reps", "none"])
         self.search_prefilter_combo.setToolTip(
-            "Exact scene-representative prune for the TPU engine: auto "
+            "Exact scene-representative prune for the device engine: auto "
             "measures corpus compression, reps forces it, none disables."
         )
         self.search_backend_combo.setToolTip(
-            "auto: TPU exact all-pairs engine when a device is available,\n"
+            "auto: exact all-pairs device engine for batches of files,\n"
             "else the VP-tree. tree: force the reference VP-tree search.\n"
-            "tpu: force the device engine."
+            "tpu: force the device (GPU) engine."
         )
         self.hash_backend_combo = QComboBox()
         self.hash_backend_combo.addItems(["auto", "native", "tpu"])
         self.hash_backend_combo.setToolTip(
             "native: threaded C++ hasher (reference behavior).\n"
-            "tpu: device-batched hashing across all files."
+            "tpu: device-batched (GPU) hashing across all files."
         )
         self.decode_backend_combo = QComboBox()
         self.decode_backend_combo.addItems(["auto", "libav", "legacy"])

@@ -5,10 +5,10 @@ duplicate pairs, a learned embedding (e.g. CLIP's vision tower) reranks
 them by cosine similarity — catching perceptual-hash false positives and
 confirming true duplicates across heavier transforms.
 
-This module is the TPU-native mechanism: a standard pre-norm ViT whose
+This module is the device mechanism: a standard pre-norm ViT whose
 parameters load from a single ``.npz`` file, jitted end to end (patch
-embedding and attention/MLP blocks are MXU matmuls; the whole tower is a
-natural fit for the chip that already hashes the frames). No weights ship
+embedding and attention/MLP blocks are matrix products; the whole tower
+runs on the device that already hashes the frames). No weights ship
 with the framework (CLIP weights are not redistributable here); any ViT
 checkpoint converted to the documented layout plugs in, and tests exercise
 the full mechanism with synthetic weights.

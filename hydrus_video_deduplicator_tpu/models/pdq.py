@@ -1,11 +1,12 @@
 """Batched PDQ frame hashing as a pure JAX (XLA) program.
 
 Implements the exact-by-construction PDQ spec (vpdq/pdq_math.py) with the
-same fixed op ordering as the numpy oracle and the C++ native path. The
-resulting 256-bit hashes are bit-identical on TPU (and to the oracles); the
-XLA-**CPU** fallback may drift ~1 ulp pre-threshold from LLVM FMA
-contraction (see _dct16 and pdq_math step 5 for the exact scope). See the
-oracle (vpdq/python_ref.py) for the authoritative step-by-step description.
+same fixed op ordering as the numpy oracle and the C++ native path (built
+with -ffp-contract=off). The resulting 256-bit hashes are bit-identical to
+the oracles on every backend: each f32 product that feeds an addition
+passes through :func:`_guard`, which keeps the compiler from contracting
+the pair into a fused multiply-add (see its docstring). See the oracle
+(vpdq/python_ref.py) for the authoritative step-by-step description.
 
 The pipeline is jittable and shardable: the batch axis is embarrassingly
 parallel, so sharding the leading axis over a mesh data-parallelizes hashing
@@ -45,7 +46,24 @@ def _shift(x: jnp.ndarray, k: int, axis: int) -> jnp.ndarray:
     return jnp.pad(sl, pad)
 
 
-def _box_pass(x: jnp.ndarray, axis: int) -> jnp.ndarray:
+def _guard(product: jnp.ndarray, zero: jnp.ndarray) -> jnp.ndarray:
+    """``product`` unchanged, out of reach of FMA contraction.
+
+    XLA's CPU and GPU code generators let LLVM contract an f32 multiply
+    whose result feeds an add into one fused multiply-add, which rounds
+    once instead of twice and breaks bit parity with the oracles. ORing
+    the product's bits with ``zero`` — a runtime int32 0 the compiler
+    cannot see through — puts an integer op between the multiply and
+    every add that consumes it, so no backend can fuse the pair. The cost
+    is one integer op per product. ``zero`` must be an argument of the
+    jitted program: a Python or NumPy 0 closed over becomes a constant,
+    and the compiler folds the guard away.
+    """
+    bits = jax.lax.bitcast_convert_type(product, jnp.int32) | zero
+    return jax.lax.bitcast_convert_type(bits, jnp.float32)
+
+
+def _box_pass(x: jnp.ndarray, axis: int, zero: jnp.ndarray) -> jnp.ndarray:
     """One window-4 box pass along ``axis`` (last two axes are the frame).
 
     The spec's pairwise-tree order (vpdq/pdq_math.py): left pair a2, right
@@ -58,7 +76,7 @@ def _box_pass(x: jnp.ndarray, axis: int) -> jnp.ndarray:
     s4 = a2 + b2  # sum x[i-1..i+2]
     shape = [1] * x.ndim
     shape[axis] = n
-    return s4 * jnp.asarray(_RECIPS).reshape(shape)
+    return _guard(s4 * jnp.asarray(_RECIPS).reshape(shape), zero)
 
 
 def _luma(frames_u8: jnp.ndarray) -> jnp.ndarray:
@@ -68,15 +86,15 @@ def _luma(frames_u8: jnp.ndarray) -> jnp.ndarray:
     return milli.astype(jnp.float32)
 
 
-def _filter_and_decimate(luma: jnp.ndarray) -> jnp.ndarray:
+def _filter_and_decimate(luma: jnp.ndarray, zero: jnp.ndarray) -> jnp.ndarray:
     """[B, 512, 512] f32 -> [B, 64, 64] f32 (box passes + gather).
 
     Pass order (rows, cols, cols, rows) — see pdq_math's pass-order note.
     """
-    x = _box_pass(luma, axis=2)  # rep 1: along each row
-    x = _box_pass(x, axis=1)  # rep 1: along each column
-    x = _box_pass(x, axis=1)  # rep 2: columns first
-    x = _box_pass(x, axis=2)  # rep 2: rows second
+    x = _box_pass(luma, 2, zero)  # rep 1: along each row
+    x = _box_pass(x, 1, zero)  # rep 1: along each column
+    x = _box_pass(x, 1, zero)  # rep 2: columns first
+    x = _box_pass(x, 2, zero)  # rep 2: rows second
     # decimate at (8i+4, 8j+4)
     return x[:, pm.DECIMATE_OFF :: pm.DECIMATE_STRIDE, pm.DECIMATE_OFF :: pm.DECIMATE_STRIDE]
 
@@ -91,22 +109,16 @@ def _quality(buf64: jnp.ndarray) -> jnp.ndarray:
     return jnp.minimum(gs // pm.QUALITY_DENOM, pm.QUALITY_MAX)
 
 
-def _dct16(buf64: jnp.ndarray) -> jnp.ndarray:
+def _dct16(buf64: jnp.ndarray, zero: jnp.ndarray) -> jnp.ndarray:
     """[B, 64, 64] f32 -> [B, 16, 16] f32 via fixed-order k mul/add chains.
 
-    Deliberately NOT a matmul: MXU/XLA reduction order would break bit
+    Deliberately NOT a matmul: a library reduction order would break bit
     parity with the sequential-k oracle. The chains are expressed as
     lax.scan so no backend can re-recognize them as reassociable dots
     (XLA-CPU rewrites an unrolled 64-term mul/add chain into a dot with a
-    different accumulation order). The arrays are tiny (1/64th of the
-    filter stage), so the 64-step sequential loop is not a bottleneck.
-
-    Bit-exactness scope: TPU (and the C++/numpy oracles) are strictly
-    bit-identical. XLA-CPU contracts f32 mul+add into FMA at the LLVM
-    level regardless of flags, so the CPU-XLA fallback can drift by ~1 ulp
-    pre-threshold — up to a couple of hash bits on degenerate (constant)
-    frames. The reference's own golden-test tolerance covers this
-    (test_vpdqpy.py:116-128); the exact CPU path is the native hasher.
+    different accumulation order), and every product is guarded against
+    FMA contraction (_guard). The arrays are tiny (1/64th of the filter
+    stage), so the 64-step sequential loop is not a bottleneck.
     """
     batch = buf64.shape[0]
     d = jnp.asarray(_DCT)
@@ -120,7 +132,7 @@ def _dct16(buf64: jnp.ndarray) -> jnp.ndarray:
     def step1(tmp, xs):
         dk, bk = xs  # [u, 16], [u, B, 64]
         for i in range(u):
-            tmp = tmp + dk[i][None, :, None] * bk[i][:, None, :]
+            tmp = tmp + _guard(dk[i][None, :, None] * bk[i][:, None, :], zero)
         return tmp, None
 
     tmp0 = jnp.zeros((batch, pm.DCT_DIM, pm.BUF_DIM), jnp.float32)
@@ -131,7 +143,7 @@ def _dct16(buf64: jnp.ndarray) -> jnp.ndarray:
     def step2(out, xs):
         dk, tk = xs  # [u, 16], [u, B, 16]
         for i in range(u):
-            out = out + tk[i][:, :, None] * dk[i][None, None, :]
+            out = out + _guard(tk[i][:, :, None] * dk[i][None, None, :], zero)
         return out, None
 
     out0 = jnp.zeros((batch, pm.DCT_DIM, pm.DCT_DIM), jnp.float32)
@@ -149,11 +161,19 @@ def _threshold_pack(dct: jnp.ndarray) -> jnp.ndarray:
     return jnp.sum(bits.astype(jnp.int32) * weights, axis=2)
 
 
-def pdq_hash_batch(frames_u8: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+#: the runtime zero of _guard: it must reach the program as an argument
+#: (a constant would be folded away, and the contraction with it)
+ZERO = np.int32(0)
+
+
+def pdq_hash_batch(
+    frames_u8: jnp.ndarray, zero: jnp.ndarray
+) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Hash a batch of pre-scaled frames.
 
     Args:
       frames_u8: [B, 512, 512, 3] uint8 rgb24.
+      zero: int32 scalar 0 passed at run time (:data:`ZERO`; see _guard).
 
     Returns:
       (words, quality): [B, 16] int32 hash words (w0..w15, 16 low bits
@@ -161,13 +181,18 @@ def pdq_hash_batch(frames_u8: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
       blobs with :func:`words_to_blobs`.
     """
     luma = _luma(frames_u8)
-    buf64 = _filter_and_decimate(luma)
+    buf64 = _filter_and_decimate(luma, zero)
     q = _quality(buf64)
-    words = _threshold_pack(_dct16(buf64))
+    words = _threshold_pack(_dct16(buf64, zero))
     return words, q
 
 
-pdq_hash_batch_jit = jax.jit(pdq_hash_batch)
+_pdq_hash_batch_jit = jax.jit(pdq_hash_batch)
+
+
+def pdq_hash_batch_jit(frames_u8) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Jitted :func:`pdq_hash_batch` with the runtime zero supplied."""
+    return _pdq_hash_batch_jit(frames_u8, ZERO)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,16 @@
-"""Video-level TPU hashing: decode-parallel, device-batched VPDQ.
+"""Video-level device hashing: decode-parallel, device-batched VPDQ.
 
 The reference hashes one video at a time through a CPU thread pool
-(vpdqpy.py:104-119). On TPU the economics invert: the PDQ kernel wants
-large batches, and decode (CPU) must run ahead of the device. This module
-provides the TPU hashing pipeline:
+(vpdqpy.py:104-119). On an accelerator the economics invert: the PDQ
+program wants large batches, and decode (CPU) must run ahead of the
+device. This module provides the device hashing pipeline:
 
-    files -> [decode pool: N workers] -> frame batches [B, 3, 512, 512]
-          -> fused Pallas hash kernel -> (hash words, quality)
+    files -> [decode pool: N workers] -> frame batches [B, 512, 512, 3]
+          -> XLA PDQ program (models/pdq.py) -> (hash words, quality)
           -> regroup by video, quality-filter, pack -> VpdqHash per file
 
 Frames from many videos share device batches (ragged videos are flattened
-into a frame stream with video ids), so the MXU/VPU stays full regardless
+into a frame stream with video ids), so the device stays busy regardless
 of video length. Failure semantics match the reference: a video that fails
 to decode yields a typed failure and never poisons the batch.
 """
@@ -29,27 +29,21 @@ from ..vpdq import VpdqHash
 from ..vpdq import pdq_math as pm
 from ..decode import extract_frames
 
-log = logging.getLogger("vpdq-tpu")
+log = logging.getLogger("vpdq-device")
 
-#: device batch size (frames); ~0.5 ms of fixed per-dispatch overhead means
-#: bigger batches hash faster per frame (128: ~134k f/s, 512: ~234k f/s
-#: measured on v5e) and a 512-frame batch still returns in ~2 ms. The CPU
-#: fallback uses a small batch because XLA-CPU compile time grows with
-#: buffer sizes.
-BATCH = 512
-BATCH_CPU = 16
 #: smallest padded batch shape for partial flushes. Padding travels H2D
 #: (786 KB/frame), so a partial final flush pads to the smallest
 #: power-of-two bucket >= its real frame count instead of the full batch —
 #: a 32-frame flush otherwise ships a 94%-zeros 403 MB batch. The ladder
-#: {32, 64, ..., BATCH} bounds the number of compiled shapes at 5.
+#: {32, 64, ..., batch} bounds the number of compiled shapes at 5 for the
+#: GPU's 512-frame batch (device.Capabilities.hash_batch).
 MIN_BUCKET = 32
 #: decode worker threads feeding the device
 DECODE_WORKERS = 4
 #: bounded buffer of decoded frames (backpressure, like the reference's
-#: bounded native queue — vpdqpy.py:114-118); 2x the device batch so decode
-#: keeps filling while a full batch is on the device
-FRAME_BUFFER_FRAMES = 2 * BATCH
+#: bounded native queue — vpdqpy.py:114-118); 2x the GPU's 512-frame batch
+#: so decode keeps filling while a full batch is on the device
+FRAME_BUFFER_FRAMES = 1024
 
 
 class _ConsumerAborted(Exception):
@@ -67,38 +61,32 @@ class VideoResult:
 
 
 def _hash_batch_fn(mesh=None):
-    """Pick the device hash function (pallas on TPU, XLA elsewhere).
+    """The device hash function: frames [B, 512, 512, 3] u8 -> (words,
+    quality) through the XLA PDQ program (models/pdq.py).
 
     With a mesh, the batch axis is sharded over the devices via shard_map
-    (each chip hashes its slab — pure data parallelism, no collectives),
-    mirroring __graft_entry__.dryrun_multichip's stage 1.
+    (each device hashes its slab — pure data parallelism, no collectives).
     """
     import jax
 
-    if jax.devices()[0].platform == "tpu":
-        from ..ops.pdq_pallas import pdq_hash_batch_pallas_jit
-
-        base = pdq_hash_batch_pallas_jit
-    else:
-        from .pdq import pdq_hash_batch_jit
-
-        def base(planar):
-            return pdq_hash_batch_jit(planar.transpose(0, 2, 3, 1))
+    from .pdq import ZERO, pdq_hash_batch, pdq_hash_batch_jit
 
     if mesh is None:
-        return base
+        return pdq_hash_batch_jit
 
     from jax.sharding import NamedSharding, PartitionSpec as P
     from ..parallel.mesh import shard_map
 
-    rows = P(tuple(mesh.axis_names))  # leading axis over ALL mesh axes
-    fn = shard_map(
-        base, mesh=mesh, in_specs=rows, out_specs=(rows, rows), check_rep=False
+    rows = P(mesh.axis_names[0])
+    fn = jax.jit(
+        shard_map(
+            pdq_hash_batch, mesh=mesh, in_specs=(rows, P()), out_specs=(rows, rows)
+        )
     )
     sharding = NamedSharding(mesh, rows)
 
-    def sharded(planar):
-        return fn(jax.device_put(np.ascontiguousarray(planar), sharding))
+    def sharded(frames):
+        return fn(jax.device_put(frames, sharding), ZERO)
 
     return sharded
 
@@ -132,9 +120,9 @@ class TpuVideoHasher:
 
             decode_workers = max(1, (os.cpu_count() or 2) + 1 + decode_workers)
         if batch_size is None:
-            import jax
+            from .. import device
 
-            batch_size = BATCH if jax.devices()[0].platform == "tpu" else BATCH_CPU
+            batch_size = device.capabilities().hash_batch
         if mesh is not None:
             n = mesh.devices.size
             batch_size = ((batch_size + n - 1) // n) * n
@@ -174,7 +162,7 @@ class TpuVideoHasher:
                     raise _ConsumerAborted()
 
     def _decode_worker(self, jobs: "queue.Queue", out: "queue.Queue", abort) -> None:
-        """Streams ('frame', idx, frame_no, planar) messages through the
+        """Streams ('frame', idx, frame_no, rgb) messages through the
         frame-bounded queue (true decode->device backpressure: memory is
         bounded by frames in flight, not videos), then a
         ('done', idx, n_frames, error) terminator per video."""
@@ -187,7 +175,7 @@ class TpuVideoHasher:
             try:
                 for f in extract_frames(video, sampling=self.sampling):
                     self._abortable_put(
-                        out, ("frame", idx, n, np.ascontiguousarray(f.transpose(2, 0, 1))), abort
+                        out, ("frame", idx, n, np.ascontiguousarray(f)), abort
                     )
                     n += 1
                 self._abortable_put(out, ("done", idx, n, None), abort)
@@ -225,7 +213,7 @@ class TpuVideoHasher:
             workers.append(t)
 
         # accumulate frames across videos into device batches
-        pending_frames: list[np.ndarray] = []  # planar [3,512,512]
+        pending_frames: list[np.ndarray] = []  # rgb [512,512,3]
         pending_owner: list[tuple[int, int]] = []  # (video idx, frame_no)
         hashes_per_video: dict[int, list[tuple[int, bytes]]] = {
             i: [] for i in range(len(items))

@@ -2,11 +2,11 @@
 
 The reference's VP-tree prunes its search with the triangle inequality
 over sphere radii (/root/reference/src/hydrusvideodeduplicator/db/
-vptree.py:754-777). This module is that idea rebuilt flat and TPU-first:
+vptree.py:754-777). This module is that idea rebuilt flat for the device:
 instead of a pointer tree descended per query, each video's frames are
 greedily clustered into a handful of *representative frames* (scene
 leaders), and the corpus-level candidate filter becomes one dense
-MXU sweep over representatives (parallel/engine.py pruned route).
+int8 sweep over representatives (parallel/engine.py pruned route).
 
 Clustering (native hvd_cluster_reps, numpy fallback below): frames scan
 the video's leaders in creation order and join the first one within

@@ -1,10 +1,10 @@
-"""Bit-packed VPDQ similarity primitives for TPU.
+"""Bit-packed VPDQ similarity primitives for the device.
 
-This is the TPU-native replacement for the reference's per-pair native
+This is the device replacement for the reference's per-pair native
 ``matchHash`` AND for its VP-tree search at corpus scale (SURVEY.md §7 step
 5): instead of a metric-tree descent doing O(depth) sequential 256-bit
 comparisons per insert/query, we compute exact all-pairs similarity as tiled
-MXU work over the whole corpus.
+int8 matrix products over the whole corpus.
 
 Representations
 ---------------
@@ -12,9 +12,10 @@ Representations
 - device packed:  [F, 8] uint32 lanes (bit b of frame f = packed[f, b//32]
   >> (b%32) — little-endian within the 256-bit row, derived from the blob's
   big-endian word order; the mapping is internal-only and round-trips).
-- MXU form:       [F, 256] int8 in {-1, +1}. For rows a, b:
+- matmul form:    [F, 256] int8 in {-1, +1}. For rows a, b:
   dot(a, b) = 256 - 2 * hamming(a, b), so an int8 [Fa,256]x[256,Fb] matmul
-  (int32 accumulation on the MXU) yields all pairwise Hamming distances.
+  (int32 accumulation) yields all pairwise Hamming distances. Zero rows
+  (padding) dot to 0 with everything, i.e. Hamming 128: they never match.
 
 Video-level similarity (reference semantics, SURVEY.md §2.1):
   sim(A, B) = 100 * min(|{i: min_j d(ai,bj) <= tol}| / |A|,
@@ -25,6 +26,8 @@ computed here in exact integer arithmetic: int_sim = min(100*ma // fa,
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +36,8 @@ from ..vpdq import pdq_math as pm
 
 LANES = pm.BYTES_PER_HASH // 4  # 8 uint32 lanes per 256-bit hash
 BITS = 8 * pm.BYTES_PER_HASH  # 256
+TOL = pm.DEFAULT_DISTANCE_TOLERANCE
+MATCH_DOT = BITS - 2 * TOL  # dot >= this  <=>  hamming <= TOL
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +56,30 @@ def packed_to_blobs(packed: np.ndarray) -> bytes:
     return np.ascontiguousarray(packed.astype(np.uint32)).view(np.uint8).tobytes()
 
 
+def unpack_pm1_host(packed: np.ndarray, counts: np.ndarray | None = None) -> np.ndarray:
+    """[V, P, 8] uint32 -> [V*P, 256] int8 ±1; padded frames become zero rows.
+
+    counts: [V] true frame counts (frames at or past the count are zeroed).
+    When None, every row is treated as real.
+
+    Bit order: bit j of little-endian u32 lane l is hash bit l*32 + j, i.e.
+    bit (b % 8) of blob byte (b // 8) — exactly np.unpackbits little order
+    on the raw bytes (C-speed; a u32 shift-broadcast formulation is a host
+    bottleneck at 1M-video scale).
+    """
+    v, p, _lanes = packed.shape
+    u8 = np.ascontiguousarray(packed).view(np.uint8).reshape(v * p, BITS // 8)
+    bits = np.unpackbits(u8, axis=1, bitorder="little")
+    # 0/1 -> -1/+1 without an astype copy: uint8 wraps 0*2-1 to 255 == -1
+    bits *= 2
+    bits -= 1
+    pm1 = bits.view(np.int8)
+    if counts is not None:
+        invalid = np.arange(p)[None, :] >= np.asarray(counts, np.int64)[:, None]
+        pm1.reshape(v, p, BITS)[invalid] = 0
+    return pm1
+
+
 # ---------------------------------------------------------------------------
 # Device primitives
 # ---------------------------------------------------------------------------
@@ -67,8 +96,8 @@ def unpack_pm1(packed_u32: jnp.ndarray) -> jnp.ndarray:
 def hamming_tile(a_pm1: jnp.ndarray, b_pm1: jnp.ndarray) -> jnp.ndarray:
     """[Fa, 256] x [Fb, 256] int8 ±1 -> [Fa, Fb] int32 Hamming distances.
 
-    dot = 256 - 2d  =>  d = (256 - dot) >> 1. Runs on the MXU with int8
-    inputs and int32 accumulation (exact).
+    dot = 256 - 2d  =>  d = (256 - dot) >> 1. An int8 matrix product with
+    int32 accumulation (exact).
     """
     dot = jax.lax.dot_general(
         a_pm1,
@@ -85,7 +114,7 @@ def hamming_tile_packed(a_packed: jnp.ndarray, b_packed: jnp.ndarray) -> jnp.nda
 
 
 def hamming_tile_popcount(a_packed: jnp.ndarray, b_packed: jnp.ndarray) -> jnp.ndarray:
-    """VPU alternative: XOR + population_count. Exact; useful for small tiles
+    """Elementwise alternative: XOR + population_count. Exact; useful for small tiles
     where the ±1 unpack outweighs the matmul win."""
     x = a_packed[:, None, :] ^ b_packed[None, :, :]
     return jax.lax.population_count(x).sum(axis=2).astype(jnp.int32)
@@ -95,9 +124,9 @@ def video_pair_similarity(  # noqa: C901 - reference implementation
     # NOTE: this flat-layout aggregation is the readable REFERENCE
     # implementation of the video-level match-fraction semantics, used by
     # tests as a second oracle. The production paths implement the same
-    # formula on bucketed layouts (parallel/engine._tile_similarity, XLA)
-    # and fused in VMEM (ops/similarity_pallas, Pallas); change all three
-    # together.
+    # formula on bucketed layouts (parallel/engine._tile_similarity,
+    # similarity_block_xla) and packed segments
+    # (ops/similarity_segments.py); change them together.
     ham: jnp.ndarray,
     a_video_ids: jnp.ndarray,
     b_video_ids: jnp.ndarray,
@@ -138,6 +167,30 @@ def video_pair_similarity(  # noqa: C901 - reference implementation
     sim = jnp.minimum(sim_a, sim_b)
     nonempty = (a_frame_counts[:, None] > 0) & (b_frame_counts[None, :] > 0)
     return jnp.where(nonempty, sim, 0)
+
+
+@functools.partial(jax.jit, static_argnames=("pa", "pb"))
+def similarity_block_xla(
+    a_pm1: jnp.ndarray,  # [Ra*pa, 256] int8 (zero rows for pad)
+    fa: jnp.ndarray,  # [Ra, 1] int32
+    b_pm1: jnp.ndarray,  # [Cb*pb, 256] int8
+    fb: jnp.ndarray,  # [Cb, 1] int32
+    pa: int,
+    pb: int,
+) -> jnp.ndarray:
+    """Integer video similarity [Ra, Cb] over ±1/0 frame rows of videos
+    padded to pa / pb frames (zero rows past each count)."""
+    ra = fa.shape[0]
+    cb = fb.shape[0]
+    dot = jax.lax.dot_general(
+        a_pm1, b_pm1, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32
+    )
+    m = (dot >= MATCH_DOT).reshape(ra, pa, cb, pb)
+    ma = m.any(axis=3).sum(axis=1, dtype=jnp.int32)  # [Ra, Cb]
+    mb = m.any(axis=1).sum(axis=2, dtype=jnp.int32)  # [Ra, Cb]
+    fa_div = jnp.maximum(fa, 1)  # [Ra, 1]
+    fb_div = jnp.maximum(fb.T, 1)  # [1, Cb]
+    return jnp.minimum((100 * ma) // fa_div, (100 * mb) // fb_div)
 
 
 def int_similarity_to_distance(sim: jnp.ndarray) -> jnp.ndarray:

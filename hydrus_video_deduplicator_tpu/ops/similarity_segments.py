@@ -1,49 +1,51 @@
-"""Fixed-shape ("segment") variant of the fused similarity kernel.
+"""Fixed-shape ("segment") similarity kernels.
 
-The bucketed kernel (similarity_pallas.py) specializes on the (pa, pb)
-frame-count bucket pair — a mixed-length corpus compiles up to ~121 Mosaic
-kernels and pads every video to a power of two. This variant fixes every
-shape once and moves the raggedness into DATA:
+A bucketed kernel would specialize on each (pa, pb) frame-count bucket pair
+— a mixed-length corpus compiles up to ~121 programs and pads every video
+to a power of two. These kernels fix every shape once and move the
+raggedness into DATA:
 
   * videos pack greedily into fixed FRAME blocks (no power-of-two padding:
     a 9-frame video occupies 9 frame rows);
-  * the frame->video-slot membership one-hots — compile-time constants in
-    the bucketed kernel — are inputs here, built per block by the packer;
-  * the kernel body is the bucketed kernel's, verbatim math: int8 MXU dot,
-    single-compare match, one-hot MXU reductions, min of directional
-    match fractions.
+  * the frame->video-slot membership one-hots are built on the device from
+    compact slot ids shipped by the packer;
+  * the math: int8 ±1 dot (dot >= 256 - 2*tol <=> Hamming <= tol), one
+    compare for the match matrix, one-hot matrix products for the per-video
+    reductions, min of the directional match fractions.
 
-One kernel shape => ONE compile ever, and ~0 padding waste on realistic
-corpora. Constraints: a video must fit inside one column chunk
-(SEG_MAX_FRAMES frames); longer videos take the bucketed or host paths.
+One shape => ONE compile ever, and ~0 padding waste on realistic corpora.
+Constraint: a video must fit inside one column chunk (SEG_MAX_FRAMES
+frames); longer videos take the bucketed or host paths.
 
-Per pallas_call (all fixed):
-  rows: TILE_ROW_BLOCKS blocks x [ROW_FRAMES, 256] frames / ROW_SLOTS slots
-  cols: TILE_COL_STEPS steps x N_SPLIT chunks x [CHUNK_FRAMES, 256] frames
-        / CHUNK_SLOTS local slots
-  out:  [TILE_ROW_BLOCKS*ROW_SLOTS, TILE_COL_STEPS*N_SPLIT*CHUNK_SLOTS]
+Layout (all fixed):
+  rows: blocks of [ROW_FRAMES, 256] frames / ROW_SLOTS slots
+  cols: steps of N_SPLIT chunks x [CHUNK_FRAMES, 256] frames / CHUNK_SLOTS
+        chunk-local slots
+  out:  [row slots, col slots] (score kernel) or row-packed bitmask words
+        [row slots / 32, col slots] (existence kernels)
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from . import similarity as ops_sim
-from .similarity_pallas import BITS, MATCH_DOT, unpack_pm1_host
+from .similarity import BITS, MATCH_DOT, unpack_pm1_host
 
 #: uint32 lanes per packed 256-bit frame hash
 LANES = BITS // 32
 
-#: kernel row block: frames x video slots
+#: row block: frames x video slots
 ROW_FRAMES = 2048
 ROW_SLOTS = 256
-#: kernel column chunk: frames x local video slots; N_SPLIT chunks per step
+#: column chunk: frames x local video slots; N_SPLIT chunks per step
 CHUNK_FRAMES = 512
 CHUNK_SLOTS = 64
 N_SPLIT = 4
@@ -53,45 +55,12 @@ STEP_SLOTS = N_SPLIT * CHUNK_SLOTS  # 256
 #: videos longer than one column chunk cannot take this route
 SEG_MAX_FRAMES = CHUNK_FRAMES
 
-#: blocks/steps per pallas_call — fixed so there is exactly one executable
-TILE_ROW_BLOCKS = 2  # 4096 frames / 512 slots per call
-TILE_COL_STEPS = 8  # 16384 frames / 2048 slots per call
+#: column steps per engine column tile and default row blocks per dispatch
+TILE_ROW_BLOCKS = 2  # 4096 frames / 512 slots
+TILE_COL_STEPS = 8  # 16384 frames / 2048 slots
 
-
-def _segment_kernel(a_ref, b_ref, oa_ref, ob_ref, fa_ref, fb_ref, out_ref):
-    """Bucketed-kernel math with membership one-hots as data."""
-    a = a_ref[:]  # [ROW_FRAMES, 256] int8 (zero rows never match)
-    onehot_a = oa_ref[:]  # [ROW_FRAMES, ROW_SLOTS] int8
-    fa_div = jnp.maximum(fa_ref[:], 1)  # [ROW_SLOTS, 1]
-
-    for s in range(N_SPLIT):
-        b = b_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-        onehot_b = ob_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-        fb = fb_ref[s * CHUNK_SLOTS : (s + 1) * CHUNK_SLOTS, :]
-
-        dot = jax.lax.dot_general(
-            a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32
-        )  # [ROW_FRAMES, CHUNK_FRAMES]
-        m8 = (dot >= MATCH_DOT).astype(jnp.int8)
-
-        cnt_b = jax.lax.dot_general(
-            m8, onehot_b, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )
-        hits_b = (cnt_b > 0).astype(jnp.int8)
-        ma = jax.lax.dot_general(
-            onehot_a, hits_b, (((0,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )
-        cnt_a = jax.lax.dot_general(
-            onehot_a, m8, (((0,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )
-        hits_a = (cnt_a > 0).astype(jnp.int8)
-        mb = jax.lax.dot_general(
-            hits_a, onehot_b, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )
-
-        fb_div = jnp.maximum(fb.T, 1)
-        sim = jnp.minimum((100 * ma) // fa_div, (100 * mb) // fb_div)
-        out_ref[:, s * CHUNK_SLOTS : (s + 1) * CHUNK_SLOTS] = sim
+#: mask words per row block: bit b of word w covers row slot w*32+b
+MASK_WORDS = ROW_SLOTS // 32
 
 
 def _onehot_from_slots(slot_ids: jnp.ndarray, n_slots: int) -> jnp.ndarray:
@@ -104,8 +73,8 @@ def _onehot_from_slots(slot_ids: jnp.ndarray, n_slots: int) -> jnp.ndarray:
 
 
 @jax.jit
-def similarity_segments_pallas(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
-    """Slot-level similarity for packed segment tiles (TPU only).
+def similarity_segments_xla(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
+    """Slot-level similarity for packed segment tiles (plain XLA).
 
     a_pm1 [RA_F, 256] i8, slot_a [RA_F] i32 block-local slot ids (-1 pad),
     fa [RA_S, 1] i32 with RA_F a multiple of ROW_FRAMES
@@ -113,46 +82,6 @@ def similarity_segments_pallas(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
     chunk-local ids, fb [CB_S, 1] with CB_F a multiple of STEP_FRAMES.
     Returns [RA_S, CB_S] int32 similarities.
     """
-    oa = _onehot_from_slots(slot_a, ROW_SLOTS)
-    ob = _onehot_from_slots(slot_b, CHUNK_SLOTS)
-    ra_f = a_pm1.shape[0]
-    cb_f = b_pm1.shape[0]
-    assert ra_f % ROW_FRAMES == 0 and cb_f % STEP_FRAMES == 0, (ra_f, cb_f)
-    n_row_blocks = ra_f // ROW_FRAMES
-    n_col_steps = cb_f // STEP_FRAMES
-    grid = (n_col_steps, n_row_blocks)
-    grid_spec = pl.GridSpec(
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((ROW_FRAMES, BITS), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((STEP_FRAMES, BITS), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ROW_FRAMES, ROW_SLOTS), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((STEP_FRAMES, CHUNK_SLOTS), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ROW_SLOTS, 1), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((STEP_SLOTS, 1), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (ROW_SLOTS, STEP_SLOTS), lambda j, i: (i, j), memory_space=pltpu.VMEM
-        ),
-    )
-    return pl.pallas_call(
-        _segment_kernel,
-        out_shape=jax.ShapeDtypeStruct(
-            (n_row_blocks * ROW_SLOTS, n_col_steps * STEP_SLOTS), jnp.int32
-        ),
-        grid_spec=grid_spec,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ra_f * cb_f * BITS,
-            bytes_accessed=ra_f * BITS + cb_f * BITS + ra_f // 8 * cb_f // 8 * 4,
-            transcendentals=0,
-        ),
-    )(a_pm1, b_pm1, oa, ob, fa, fb)
-
-
-@jax.jit
-def similarity_segments_xla(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
-    """Plain-XLA twin of similarity_segments_pallas: identical signature,
-    layout, and math; runs on any backend (CPU oracle / mock target)."""
     oa = _onehot_from_slots(slot_a, ROW_SLOTS)
     ob = _onehot_from_slots(slot_b, CHUNK_SLOTS)
     ra_f = a_pm1.shape[0]
@@ -189,93 +118,23 @@ def similarity_segments_xla(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
 
 
 # ---------------------------------------------------------------------------
-# Existence ("prune") kernel — the candidate filter of the pruned route
+# Existence ("prune") kernels — the candidate filter of the pruned route
 # ---------------------------------------------------------------------------
 #
-# Same packing/layout as the similarity kernel, but (a) the Hamming
-# tolerance is a parameter (the pruned route sweeps scene representatives
-# at the inflated tolerance TOL + 2*RADIUS_CAP — ops/reps.py), and (b) the
-# output is the per-slot-pair count of row reps matching the col slot
-# (>= 1 <=> some rep pair within tolerance <=> the video pair survives the
-# exact prune bound). Dropping the second direction and the fraction
-# epilogue removes half the elementwise passes over the [ROW_FRAMES,
-# CHUNK_FRAMES] match intermediate — the measured bound of the similarity
-# kernel (ROADMAP "Similarity kernel ceiling").
+# Same packing/layout as the score kernel, but (a) the Hamming tolerance
+# is a parameter (the pruned route sweeps scene representatives at the
+# inflated tolerance TOL + 2*RADIUS_CAP — ops/reps.py), and (b) the output
+# says only whether SOME row-slot frame matches SOME col-slot frame
+# (<=> the video pair survives the exact prune bound), as row-packed bit
+# words: bit b of word [w, c] = row slot w*32+b, column slot c.
 
 
-def _segment_exists_kernel_body(match_dot, a_ref, b_ref, oa_ref, ob_ref, out_ref):
-    a = a_ref[:]  # [ROW_FRAMES, 256] int8 (zero rows never match)
-    onehot_a = oa_ref[:]  # [ROW_FRAMES, ROW_SLOTS] int8
-    for s in range(N_SPLIT):
-        b = b_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-        onehot_b = ob_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-        dot = jax.lax.dot_general(
-            a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32
-        )  # [ROW_FRAMES, CHUNK_FRAMES]
-        m8 = (dot >= match_dot).astype(jnp.int8)
-        cnt_b = jax.lax.dot_general(
-            m8, onehot_b, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )  # [ROW_FRAMES, CHUNK_SLOTS]
-        hits_b = (cnt_b > 0).astype(jnp.int8)
-        ma = jax.lax.dot_general(
-            onehot_a, hits_b, (((0,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )  # [ROW_SLOTS, CHUNK_SLOTS]
-        out_ref[:, s * CHUNK_SLOTS : (s + 1) * CHUNK_SLOTS] = ma
-
-
-import functools as _functools
-
-
-@_functools.lru_cache(maxsize=8)
-def make_exists_kernel_pallas(tolerance: int):
-    """Jitted existence kernel for one Hamming tolerance (TPU only).
-
-    Signature-compatible with similarity_segments_pallas (fa/fb accepted
-    and ignored) so the engine's scan-sweep machinery drives either."""
-    match_dot = BITS - 2 * tolerance
-    kernel = _functools.partial(_segment_exists_kernel_body, match_dot)
-
-    @jax.jit
-    def exists(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
-        del fa, fb
-        oa = _onehot_from_slots(slot_a, ROW_SLOTS)
-        ob = _onehot_from_slots(slot_b, CHUNK_SLOTS)
-        ra_f = a_pm1.shape[0]
-        cb_f = b_pm1.shape[0]
-        assert ra_f % ROW_FRAMES == 0 and cb_f % STEP_FRAMES == 0, (ra_f, cb_f)
-        n_row_blocks = ra_f // ROW_FRAMES
-        n_col_steps = cb_f // STEP_FRAMES
-        grid_spec = pl.GridSpec(
-            grid=(n_col_steps, n_row_blocks),
-            in_specs=[
-                pl.BlockSpec((ROW_FRAMES, BITS), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((STEP_FRAMES, BITS), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((ROW_FRAMES, ROW_SLOTS), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((STEP_FRAMES, CHUNK_SLOTS), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (ROW_SLOTS, STEP_SLOTS), lambda j, i: (i, j), memory_space=pltpu.VMEM
-            ),
-        )
-        return pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct(
-                (n_row_blocks * ROW_SLOTS, n_col_steps * STEP_SLOTS), jnp.int32
-            ),
-            grid_spec=grid_spec,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * ra_f * cb_f * BITS,
-                bytes_accessed=ra_f * BITS + cb_f * BITS + ra_f // 8 * cb_f // 8 * 4,
-                transcendentals=0,
-            ),
-        )(a_pm1, b_pm1, oa, ob)
-
-    return exists
-
-
-@_functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=8)
 def make_exists_kernel_xla(tolerance: int):
-    """Plain-XLA twin of make_exists_kernel_pallas (CPU oracle/route)."""
+    """Per-slot-pair count of row frames matching the col slot (plain
+    XLA; >= 1 <=> the pair exists). Signature-compatible with the score
+    kernel (fa/fb accepted and ignored) so the engine's sweep drives
+    either."""
     match_dot = BITS - 2 * tolerance
 
     @jax.jit
@@ -307,102 +166,11 @@ def make_exists_kernel_xla(tolerance: int):
     return exists
 
 
-#: mask words per row block: bit b of word w covers row slot w*32+b
-MASK_WORDS = ROW_SLOTS // 32
-
-
-def _segment_exists_mask_kernel_body(match_dot, a_ref, b_ref, oa_ref, ob_ref, out_ref):
-    """Existence kernel with the hit bitmask packed in the EPILOGUE
-    (VERDICT r2 item 8): the [slots, slots] match-count intermediate never
-    leaves the kernel — measured, the threshold+reduce pass over the int32
-    output cost ~1 ms/tile-pair, ~60% of stage-A sweep time, while the
-    kernel itself is 0.67 ms (artifacts/bench_exists_kernel.py). Bits pack
-    across ROW slots (word w, bit b = row slot w*32+b) so the output block
-    is [MASK_WORDS, STEP_SLOTS] — lane-dim 256 keeps Mosaic's block rules
-    (a column-packed [ROW_SLOTS, 8] block fails the 128-lane divisibility
-    requirement)."""
-    a = a_ref[:]
-    onehot_a = oa_ref[:]
-    for s in range(N_SPLIT):
-        b = b_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-        onehot_b = ob_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-        dot = jax.lax.dot_general(
-            a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32
-        )
-        m8 = (dot >= match_dot).astype(jnp.int8)
-        cnt_b = jax.lax.dot_general(
-            m8, onehot_b, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )
-        hits_b = (cnt_b > 0).astype(jnp.int8)
-        ma = jax.lax.dot_general(
-            onehot_a, hits_b, (((0,), (0,)), ((), ())), preferred_element_type=jnp.int32
-        )  # [ROW_SLOTS, CHUNK_SLOTS]
-        # pack in int32 (Mosaic has no unsigned reductions): the words'
-        # bits are disjoint, so a wrapping int32 sum IS the bitwise OR;
-        # bitcast restores the uint32 view for the output
-        hit = (ma >= 1).astype(jnp.int32)
-        row_bit = (
-            jax.lax.broadcasted_iota(jnp.int32, (ROW_SLOTS, CHUNK_SLOTS), 0)
-            % jnp.int32(32)
-        )
-        shifted = (hit << row_bit).reshape(MASK_WORDS, 32, CHUNK_SLOTS)
-        out_ref[:, s * CHUNK_SLOTS : (s + 1) * CHUNK_SLOTS] = (
-            jax.lax.bitcast_convert_type(jnp.sum(shifted, axis=1), jnp.uint32)
-        )
-
-
-@_functools.lru_cache(maxsize=8)
-def make_exists_mask_kernel_pallas(tolerance: int):
-    """Existence kernel emitting row-packed hit bitmasks (TPU only).
-
-    Same input signature as the other segment kernels; output
-    [n_row_blocks * MASK_WORDS, CB_S] uint32 — 32x smaller than the int32
-    counts, with the threshold+pack fused into the kernel epilogue."""
-    match_dot = BITS - 2 * tolerance
-    kernel = _functools.partial(_segment_exists_mask_kernel_body, match_dot)
-
-    @jax.jit
-    def exists_mask(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
-        del fa, fb
-        oa = _onehot_from_slots(slot_a, ROW_SLOTS)
-        ob = _onehot_from_slots(slot_b, CHUNK_SLOTS)
-        ra_f = a_pm1.shape[0]
-        cb_f = b_pm1.shape[0]
-        assert ra_f % ROW_FRAMES == 0 and cb_f % STEP_FRAMES == 0, (ra_f, cb_f)
-        n_row_blocks = ra_f // ROW_FRAMES
-        n_col_steps = cb_f // STEP_FRAMES
-        grid_spec = pl.GridSpec(
-            grid=(n_col_steps, n_row_blocks),
-            in_specs=[
-                pl.BlockSpec((ROW_FRAMES, BITS), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((STEP_FRAMES, BITS), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((ROW_FRAMES, ROW_SLOTS), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((STEP_FRAMES, CHUNK_SLOTS), lambda j, i: (j, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (MASK_WORDS, STEP_SLOTS), lambda j, i: (i, j), memory_space=pltpu.VMEM
-            ),
-        )
-        return pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct(
-                (n_row_blocks * MASK_WORDS, n_col_steps * STEP_SLOTS), jnp.uint32
-            ),
-            grid_spec=grid_spec,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * ra_f * cb_f * BITS,
-                bytes_accessed=ra_f * BITS + cb_f * BITS,
-                transcendentals=0,
-            ),
-        )(a_pm1, b_pm1, oa, ob)
-
-    return exists_mask
-
-
-@_functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=8)
 def make_exists_mask_kernel_xla(tolerance: int):
-    """Plain-XLA twin of make_exists_mask_kernel_pallas (same row-packed
-    word layout)."""
+    """Plain-XLA existence kernel emitting row-packed hit bitmasks
+    [n_row_blocks * MASK_WORDS, CB_S] uint32 — the reference for the
+    Triton kernel below."""
     exists = make_exists_kernel_xla(tolerance)
 
     @jax.jit
@@ -418,102 +186,130 @@ def make_exists_mask_kernel_xla(tolerance: int):
     return exists_mask
 
 
-def _exists_mask_sweep_kernel_body(match_dot, valid_ref, a_ref, b_ref,
-                                   oa_ref, ob_ref, out_ref):
-    """Whole-corpus existence sweep: one grid cell per (column step, row
-    block), membership one-hots built in-kernel from slot ids, row-packed
-    mask output, invalid steps zeroed under pl.when. Moving the column
-    loop from lax.scan INTO the pallas grid lets the kernel pipeline
-    stream the column operands itself — the XLA scan's per-distinct-tile
-    dispatch overhead measured ~1 ms/tile-pair on top of the 0.67 ms
-    kernel (artifacts/bench_exists_kernel.py)."""
-    j = pl.program_id(0)
-    onehot_a = oa_ref[:]  # [ROW_FRAMES, ROW_SLOTS]
-    a = a_ref[:]
-
-    @pl.when(valid_ref[j] != 0)
-    def _run():
-        for s in range(N_SPLIT):
-            b = b_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-            ob = ob_ref[s * CHUNK_FRAMES : (s + 1) * CHUNK_FRAMES, :]
-            dot = jax.lax.dot_general(
-                a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32
-            )
-            m8 = (dot >= match_dot).astype(jnp.int8)
-            cnt_b = jax.lax.dot_general(
-                m8, ob, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32
-            )
-            hits_b = (cnt_b > 0).astype(jnp.int8)
-            ma = jax.lax.dot_general(
-                onehot_a, hits_b, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            hit = (ma >= 1).astype(jnp.int32)
-            row_bit = (
-                jax.lax.broadcasted_iota(jnp.int32, (ROW_SLOTS, CHUNK_SLOTS), 0)
-                % jnp.int32(32)
-            )
-            shifted = (hit << row_bit).reshape(MASK_WORDS, 32, CHUNK_SLOTS)
-            out_ref[:, s * CHUNK_SLOTS : (s + 1) * CHUNK_SLOTS] = (
-                jax.lax.bitcast_convert_type(jnp.sum(shifted, axis=1), jnp.uint32)
-            )
-
-    @pl.when(valid_ref[j] == 0)
-    def _skip():
-        out_ref[:] = jnp.zeros_like(out_ref)
+#: Triton existence kernel tiling: each program owns one (column chunk,
+#: row block) pair; it walks the chunk's 512 frames in sub-tiles of
+#: EXISTS_COL_TILE and, for each, the block's 2048 row frames in sub-tiles
+#: of EXISTS_ROW_TILE, so the [rows, cols] int32 products stay in
+#: registers and the column sub-tile stays resident while the row
+#: sub-tiles stream past it. Chosen on the H100 among six tilings
+#: (PERF.md); the row loop inside the column loop keeps shared
+#: memory under the 227 KB a program may use.
+EXISTS_ROW_TILE = 64
+EXISTS_COL_TILE = 128
+EXISTS_NUM_WARPS = 4
+EXISTS_NUM_STAGES = 2
 
 
-@_functools.lru_cache(maxsize=8)
-def make_exists_mask_sweep_pallas(tolerance: int):
-    """Whole-corpus existence sweep as ONE pallas_call per row tile.
+def _exists_mask_triton_body(match_dot, valid_ref, a_ref, sa_ref, b_ref, sb_ref, out_ref):
+    """One (column chunk, row block) program of the existence sweep.
 
-    a_pm1 [RA_F, 256] i8 (row tile) with slot ids slot_a [RA_F] i32;
-    b_pm1 [CB_F, 256] i8 — the ENTIRE stacked column corpus — with
-    chunk-local ids slot_b [CB_F] i32; valid [CB_F//STEP_FRAMES] i32
-    (scalar-prefetched; 0 skips the step's compute and zeroes its mask).
-    Membership one-hots are built once outside the call (XLA) and
-    streamed as int8 operands. Returns row-packed masks
-    [RA_blocks*MASK_WORDS, n_steps*STEP_SLOTS] uint32.
-    """
+    For a column sub-tile and a row sub-tile: hits[f, cs] = some frame of
+    chunk slot cs among the sub-tile's columns lies within tolerance of
+    row frame f (an int8 match matrix times the membership one-hot); the
+    block's [ROW_SLOTS, CHUNK_SLOTS] counts accumulate the transposed row
+    one-hot times those hits. Counts only need to reach 1, so summing over
+    column sub-tiles is the OR the mask wants. Nothing of the [2048, 512]
+    product leaves the program; it writes 8 words per column slot. A
+    column step whose valid flag is 0 runs no iterations and writes
+    zeros."""
+    row_tile, col_tile = EXISTS_ROW_TILE, EXISTS_COL_TILE
+    c = pl.program_id(0)
+    n_iter = valid_ref[c // N_SPLIT] * (ROW_FRAMES // row_tile)
+    col_iota = jax.lax.broadcasted_iota(jnp.int32, (col_tile, CHUNK_SLOTS), 1)
+    row_iota = jax.lax.broadcasted_iota(jnp.int32, (ROW_SLOTS, row_tile), 0)
+    acc = jnp.zeros((ROW_SLOTS, CHUNK_SLOTS), jnp.int32)
+    for q in range(CHUNK_FRAMES // col_tile):
+        b = b_ref[pl.ds(q * col_tile, col_tile), :]
+        ohb = (sb_ref[pl.ds(q * col_tile, col_tile)][:, None] == col_iota).astype(jnp.int8)
+
+        def body(r, acc, b=b, ohb=ohb):
+            a = a_ref[pl.ds(r * row_tile, row_tile), :]
+            oha_t = (row_iota == sa_ref[pl.ds(r * row_tile, row_tile)][None, :]).astype(
+                jnp.int8
+            )
+            m = (pl.dot(a, b, trans_b=True) >= match_dot).astype(jnp.int8)
+            hits = (pl.dot(m, ohb) > 0).astype(jnp.int8)
+            return acc + pl.dot(oha_t, hits)
+
+        acc = jax.lax.fori_loop(0, n_iter, body, acc)
+    # pack in int32: the words' bits are disjoint, so the wrapping int32
+    # sum IS the bitwise OR; the wrapper bitcasts to uint32
+    bit = jax.lax.broadcasted_iota(jnp.int32, (ROW_SLOTS, CHUNK_SLOTS), 0) % 32
+    hit = (acc > 0).astype(jnp.int32)
+    out_ref[...] = jnp.sum((hit << bit).reshape(MASK_WORDS, 32, CHUNK_SLOTS), axis=1)
+
+
+@functools.lru_cache(maxsize=16)
+def make_exists_mask_sweep_triton(tolerance: int, interpret: bool = False):
+    """Existence sweep of a row tile against a whole column corpus as ONE
+    Pallas launch through Triton (GPU; ``interpret=True`` runs it on the
+    CPU for tests).
+
+    sweep(a_pm1 [RA_F, 256] i8, slot_a [RA_F] i32, b_pm1 [CB_F, 256] i8,
+    slot_b [CB_F] i32, valid [CB_F // STEP_FRAMES] i32) -> row-packed masks
+    [RA_F // ROW_FRAMES * MASK_WORDS, CB_F // STEP_FRAMES * STEP_SLOTS] u32,
+    equal to make_exists_mask_kernel_xla on every valid step and zero on
+    the others."""
     match_dot = BITS - 2 * tolerance
-    kernel = _functools.partial(_exists_mask_sweep_kernel_body, match_dot)
+    kernel = functools.partial(_exists_mask_triton_body, match_dot)
 
     @jax.jit
     def sweep(a_pm1, slot_a, b_pm1, slot_b, valid):
-        oa = _onehot_from_slots(slot_a, ROW_SLOTS)
-        ob = _onehot_from_slots(slot_b, CHUNK_SLOTS)
         ra_f = a_pm1.shape[0]
         cb_f = b_pm1.shape[0]
         assert ra_f % ROW_FRAMES == 0 and cb_f % STEP_FRAMES == 0, (ra_f, cb_f)
-        n_row_blocks = ra_f // ROW_FRAMES
-        n_steps = cb_f // STEP_FRAMES
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_steps, n_row_blocks),
-            in_specs=[
-                pl.BlockSpec((ROW_FRAMES, BITS), lambda j, i, v: (i, 0)),
-                pl.BlockSpec((STEP_FRAMES, BITS), lambda j, i, v: (j, 0)),
-                pl.BlockSpec((ROW_FRAMES, ROW_SLOTS), lambda j, i, v: (i, 0)),
-                pl.BlockSpec((STEP_FRAMES, CHUNK_SLOTS), lambda j, i, v: (j, 0)),
-            ],
-            out_specs=pl.BlockSpec(
-                (MASK_WORDS, STEP_SLOTS), lambda j, i, v: (i, j)
-            ),
-        )
-        return pl.pallas_call(
+        n_blocks = ra_f // ROW_FRAMES
+        n_chunks = cb_f // CHUNK_FRAMES
+        # Triton blocks are powers of two: pad the flags (the padding is
+        # never read — chunk c reads flag c // N_SPLIT)
+        n_flags = pl.next_power_of_2(valid.shape[0])
+        valid = jnp.pad(valid.astype(jnp.int32), (0, n_flags - valid.shape[0]))
+        words = pl.pallas_call(
             kernel,
+            grid=(n_chunks, n_blocks),
+            in_specs=[
+                pl.BlockSpec((n_flags,), lambda c, i: (0,)),
+                pl.BlockSpec((ROW_FRAMES, BITS), lambda c, i: (i, 0)),
+                pl.BlockSpec((ROW_FRAMES,), lambda c, i: (i,)),
+                pl.BlockSpec((CHUNK_FRAMES, BITS), lambda c, i: (c, 0)),
+                pl.BlockSpec((CHUNK_FRAMES,), lambda c, i: (c,)),
+            ],
+            out_specs=pl.BlockSpec((MASK_WORDS, CHUNK_SLOTS), lambda c, i: (i, c)),
             out_shape=jax.ShapeDtypeStruct(
-                (n_row_blocks * MASK_WORDS, n_steps * STEP_SLOTS), jnp.uint32
+                (n_blocks * MASK_WORDS, n_chunks * CHUNK_SLOTS), jnp.int32
             ),
-            grid_spec=grid_spec,
-            cost_estimate=pl.CostEstimate(
-                flops=2 * ra_f * cb_f * BITS,
-                bytes_accessed=ra_f * BITS + cb_f * BITS,
-                transcendentals=0,
+            compiler_params=pl_triton.CompilerParams(
+                num_warps=EXISTS_NUM_WARPS, num_stages=EXISTS_NUM_STAGES
             ),
-        )(valid, a_pm1, b_pm1, oa, ob)
+            interpret=interpret,
+            name="seg_exists_mask",
+        )(valid, a_pm1, slot_a, b_pm1, slot_b)
+        return jax.lax.bitcast_convert_type(words, jnp.uint32)
 
     return sweep
+
+
+@functools.lru_cache(maxsize=8)
+def make_exists_mask_kernel_triton(tolerance: int, interpret: bool = False):
+    """The Triton sweep behind the per-tile kernel signature (every step
+    valid), for the engine's scan route over bit-packed columns."""
+    sweep = make_exists_mask_sweep_triton(tolerance, interpret=interpret)
+
+    def exists_mask(a_pm1, slot_a, fa, b_pm1, slot_b, fb):
+        del fa, fb
+        n_steps = b_pm1.shape[0] // STEP_FRAMES
+        return sweep(a_pm1, slot_a, b_pm1, slot_b, jnp.ones((n_steps,), jnp.int32))
+
+    return exists_mask
+
+
+def exists_mask_kernel(tolerance: int, kind: str):
+    """Per-tile existence kernel by name ("xla" | "triton")."""
+    if kind == "triton":
+        return make_exists_mask_kernel_triton(tolerance)
+    if kind == "xla":
+        return make_exists_mask_kernel_xla(tolerance)
+    raise ValueError(f"unknown existence kernel {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -671,7 +467,7 @@ def unpack_blocks_pm1_stacked(packed: jnp.ndarray, slot_ids: jnp.ndarray) -> jnp
     """unpack_blocks_pm1 over stacked tiles [T, F, 8], one tile at a time.
 
     A whole-stack unpack materializes a u32 bit intermediate 4x the int8
-    output (~8.6 GB at 1M videos — HBM OOM); lax.map bounds the temps to
+    output (~8.6 GB at 1M videos); lax.map bounds the temps to
     one tile (~17 MB) while producing the same [T, F, 256] result.
     """
     return jax.lax.map(lambda a: unpack_blocks_pm1(a[0], a[1]), (packed, slot_ids))

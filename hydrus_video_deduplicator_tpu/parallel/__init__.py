@@ -1,7 +1,7 @@
-"""Multi-chip sharding: mesh construction and the sharded all-pairs engine.
+"""Multi-device sharding: mesh construction and the sharded all-pairs engine.
 
-- :mod:`.mesh`   — mesh helpers (ICI-aware axis layout).
-- :mod:`.engine` — the TPU similarity search engine: exact all-pairs VPDQ
+- :mod:`.mesh`   — mesh helpers (1-D mesh over the visible devices).
+- :mod:`.engine` — the device similarity search engine: exact all-pairs VPDQ
   similarity over bucketed, bit-packed corpora, tiled on one chip and
   row-sharded across a mesh (``shard_map``) on many.
 """

@@ -1,16 +1,11 @@
-"""Mesh helpers for multi-chip execution.
+"""Mesh helpers for multi-device execution.
 
 The framework's parallelism is data-parallel over videos/frames (hashing)
 and row-sharded over the pair matrix (search): both shard a leading batch
-axis, so the mesh shape only decides *where the broadcast traffic flows*.
-On one slice a 1-D mesh over all chips rides ICI with no cross-axis
-traffic. On multi-slice hardware (DCN-connected slices) we build a 2-D
-("dcn", "ici") mesh — slices on the outer axis, chips-within-slice on the
-inner — and shard the leading batch axis over BOTH axes jointly
-(``PartitionSpec(("dcn", "ici"))``): each chip still owns a distinct row
-slab, while XLA's replication of the column side fans out over DCN once
-per slice and then over ICI within each slice. Collectives appear only in
-that column broadcast (all-gather), inserted by XLA from the shardings.
+axis over a 1-D mesh of every visible device. The cards of one host reach
+each other all to all at the same rate, so the mesh follows the algorithm
+alone; the only collective is XLA's replication of the column side,
+inserted from the shardings.
 """
 
 from __future__ import annotations
@@ -19,34 +14,23 @@ import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.8 moved shard_map out of experimental (and renamed the
-    # replication-check kwarg check_rep -> check_vma)
-    from jax import shard_map as _shard_map
-
-    _CHECK_KW = "check_vma"
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-    _CHECK_KW = "check_rep"
-
-
-def shard_map(f, *, mesh, in_specs, out_specs, check_rep=False):
-    """Version-portable shard_map (this codebase always opts out of the
-    replication check: outputs are row-sharded, not replicated)."""
-    return _shard_map(
-        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **{_CHECK_KW: check_rep}
-    )
-
 __all__ = [
     "Mesh",
     "batch_spec",
     "build_mesh",
-    "build_mesh_auto",
     "device_count",
     "replicated",
     "row_sharding",
     "shard_map",
 ]
+
+
+def shard_map(f, *, mesh, in_specs, out_specs):
+    """jax.shard_map without the replication check: outputs here are
+    row-sharded, never replicated."""
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
+    )
 
 
 def device_count() -> int:
@@ -61,31 +45,13 @@ def build_mesh(n_devices: int | None = None, axis_name: str = "d") -> Mesh:
     return Mesh(np.asarray(devices), (axis_name,))
 
 
-def build_mesh_auto() -> Mesh:
-    """Best mesh for the visible devices: 2-D ("dcn", "ici") when the
-    devices span multiple DCN-connected slices (grouped by
-    ``device.slice_index``), else a 1-D mesh over all chips."""
-    devices = jax.devices()
-    slices: dict[int, list] = {}
-    for d in devices:
-        slices.setdefault(getattr(d, "slice_index", 0), []).append(d)
-    if len(slices) > 1 and len({len(v) for v in slices.values()}) == 1:
-        grid = np.asarray(
-            [slices[k] for k in sorted(slices)], dtype=object
-        )  # [n_slices, chips_per_slice]
-        return Mesh(grid, ("dcn", "ici"))
-    return build_mesh()
-
-
 def batch_spec(mesh: Mesh) -> P:
-    """PartitionSpec sharding the leading axis over ALL mesh axes jointly
-    (equals P(axis) on a 1-D mesh)."""
-    return P(tuple(mesh.axis_names))
+    """PartitionSpec sharding the leading axis over the mesh."""
+    return P(mesh.axis_names[0])
 
 
-def row_sharding(mesh: Mesh, axis_name: str | None = None) -> NamedSharding:
+def row_sharding(mesh: Mesh) -> NamedSharding:
     """Shard the leading axis across the whole mesh."""
-    del axis_name  # kept for call-site compat; the full mesh is always used
     return NamedSharding(mesh, batch_spec(mesh))
 
 

@@ -2,7 +2,7 @@
 
 This module is the single source of truth for every numeric constant used by
 the three PDQ implementations in this framework (numpy oracle, C++ native,
-JAX/Pallas TPU). All three must produce bit-identical 256-bit hashes; that is
+JAX/XLA on the CPU or the GPU). All three must produce bit-identical 256-bit hashes; that is
 only possible if they share the exact same f32 constants and the exact same
 op ordering. The op-ordering contract ("exact-by-construction PDQ") is:
 
@@ -32,7 +32,7 @@ op ordering. The op-ordering contract ("exact-by-construction PDQ") is:
     (3 adds in a fixed pairwise tree instead of upstream's sequential
     running-window add/subtract — the order every implementation must
     reproduce exactly). Out-of-frame terms are exact 0.0f. Multiplying by a
-    shared f32 reciprocal constant (instead of dividing) makes CPU and TPU
+    shared f32 reciprocal constant (instead of dividing) makes every backend
     agree bitwise; it deviates from upstream PDQ's ``sum / count`` by <= 1
     ulp, far below the median-threshold decision noise, as is the
     tree-vs-sequential reassociation (measured: tests/unit_tests/
@@ -44,12 +44,12 @@ op ordering. The op-ordering contract ("exact-by-construction PDQ") is:
     filters COLUMNS then rows (upstream repeats rows-then-cols). Box
     passes along different axes commute exactly in real arithmetic; the
     swap only reorders f32 roundings (~1 ulp pre-threshold, measured 0
-    flipped hash bits over the fidelity corpus) and lets the TPU kernel
-    evaluate both rep-2 passes ONLY at the 4::8 decimation sites with
-    sublane-aligned gathers — rep 2 costs 1/8 of a full pass instead of
-    two full passes. Every rep-2 output site is window-interior (rows/
-    cols 3..510), so the restricted form is bit-identical to full
-    swapped-order passes; implementations may use either.
+    flipped hash bits over the fidelity corpus) and lets a fused kernel
+    evaluate both rep-2 passes ONLY at the 4::8 decimation sites — rep 2
+    then costs 1/8 of a full pass instead of two full passes. Every rep-2
+    output site is window-interior (rows/cols 3..510), so the restricted
+    form is bit-identical to full swapped-order passes; implementations
+    may use either.
 3.  Decimate: sample the filtered 512x512 at (8i+4, 8j+4) — identical to
     upstream PDQ's ``(int)((i + 0.5) * 512 / 64)``. (The stride 8 is
     FRAME_DIM // BUF_DIM, independent of the box window.)
@@ -62,15 +62,11 @@ op ordering. The op-ordering contract ("exact-by-construction PDQ") is:
     1..16, skipping DC — same as upstream). Both contractions are computed
     as fixed-order k=0..63 multiply-then-add chains in f32 (no FMA: the
     C++ build uses -ffp-contract=off; the JAX path uses lax.scan so XLA
-    cannot re-recognize the chain as a reassociable dot).
+    cannot re-recognize the chain as a reassociable dot, and guards every
+    product against FMA contraction — models/pdq._guard).
 
     Bit-exactness scope: the numpy oracle, the C++ native path, and the
-    TPU backend are strictly bit-identical. The XLA-**CPU** fallback is
-    the one exception: LLVM contracts f32 mul+add into FMA regardless of
-    XLA flags, which can shift DCT values ~1 ulp and flip a couple of
-    near-median hash bits on degenerate (e.g. constant) frames — within
-    the reference's own golden-test tolerance. The exact CPU path is the
-    native hasher.
+    XLA path (CPU and GPU) are strictly bit-identical.
 6.  Threshold: median = 128th-smallest of the 256 DCT outputs (equivalent to
     upstream's torben() for n=256); ``bit[i,j] = dct[i,j] > median``.
 7.  Packing: bit index b = i*16 + j lives in 16-bit word ``w[i]`` at bit

@@ -2,7 +2,7 @@
 
 Implements the exact-by-construction PDQ spec in :mod:`.pdq_math` with
 explicit fixed-order f32 arithmetic. Every other implementation (C++ native,
-JAX XLA, Pallas TPU) is tested for bit-identity against this module.
+JAX XLA) is tested for bit-identity against this module.
 
 numpy is safe for this purpose because each element-wise op here is a single
 IEEE-754 f32 operation applied in an explicit order (no reductions that could
@@ -69,7 +69,7 @@ def jarosz_filter(luma: np.ndarray) -> np.ndarray:
     "rows pass" = filtering along each row (axis 1), matching upstream PDQ's
     boxAlongRowsFloat; "cols pass" filters along axis 0. Rep 1 is (rows,
     cols); rep 2 is (cols, rows) — see the pass-order note in pdq_math:
-    the swap is a pure f32 rounding reorder that enables the TPU kernel's
+    the swap is a pure f32 rounding reorder that allows a
     decimation-restricted rep 2.
     """
     x = _box_pass(luma, axis=1)

@@ -16,8 +16,8 @@ import uuid
 from pathlib import Path
 
 import pytest
-import requests
 
+from hydrus_video_deduplicator_tpu.client.hydrus_api import UrllibTransport
 from hydrus_video_deduplicator_tpu.entrypoint import main
 
 from .. import cassette
@@ -31,7 +31,7 @@ def test_main_replays_recorded_session(tmp_path, monkeypatch):
     data = cassette.load_cassette(cassette.CASSETTE_PATH)
     replayer = cassette.Replayer(data["interactions"])
     monkeypatch.setattr(
-        requests.Session,
+        UrllibTransport,
         "request",
         lambda self, method, url, **kw: replayer(self, method, url, **kw),
     )

@@ -25,7 +25,7 @@ import zipfile
 from pathlib import Path
 from urllib.parse import urlencode, urlsplit
 
-import requests
+from hydrus_video_deduplicator_tpu.client.hydrus_api import Response
 
 CASSETTE_PATH = Path(__file__).parent / "fixtures" / "cassette_main.json.zip"
 
@@ -55,12 +55,8 @@ def request_key(method: str, url: str, kwargs: dict) -> dict:
     }
 
 
-def make_response(status: int, content: bytes) -> requests.Response:
-    resp = requests.Response()
-    resp.status_code = status
-    resp._content = content
-    resp.headers["Content-Type"] = "application/json"
-    return resp
+def make_response(status: int, content: bytes) -> Response:
+    return Response(status, content, {"Content-Type": "application/json"})
 
 
 def save_cassette(path: Path, pairs: int, interactions: list[dict]) -> None:
@@ -78,7 +74,7 @@ def load_cassette(path: Path) -> dict:
 
 
 class Recorder:
-    """Wraps requests.Session.request: forwards to the live (fake) server
+    """Wraps UrllibTransport.request: forwards to the live (fake) server
     and records each interaction."""
 
     def __init__(self, real_request):

@@ -1,7 +1,7 @@
 """Regenerate the committed request/response cassette.
 
 Runs a full pipeline against the live fake Hydrus with a small 4-file
-corpus subset, recording every HTTP interaction at the requests.Session
+corpus subset, recording every HTTP interaction at the UrllibTransport
 layer. Run from the repo root:
 
     python -m tests.record_cassette
@@ -35,15 +35,14 @@ def cassette_store() -> dict[str, bytes]:
 
 
 def main() -> None:
-    import requests
-
+    from hydrus_video_deduplicator_tpu.client.hydrus_api import UrllibTransport
     from hydrus_video_deduplicator_tpu.entrypoint import main as run_main
 
     store = cassette_store()
     server = FakeHydrus(store)
     server.start()
-    recorder = cassette.Recorder(requests.Session.request)
-    requests.Session.request = lambda self, method, url, **kw: recorder(
+    recorder = cassette.Recorder(UrllibTransport.request)
+    UrllibTransport.request = lambda self, method, url, **kw: recorder(
         self, method, url, **kw
     )
     try:
@@ -54,7 +53,7 @@ def main() -> None:
                 dedup_database_dir=Path(d) / uuid.uuid4().hex,
             )
     finally:
-        requests.Session.request = recorder.real_request
+        UrllibTransport.request = recorder.real_request
         server.stop()
 
     cassette.save_cassette(cassette.CASSETTE_PATH, pairs, recorder.interactions)

@@ -69,7 +69,8 @@ def test_converted_tower_matches_torch(tmp_path, hidden_act):
 
     rng = np.random.default_rng(7)
     frames = rng.integers(0, 256, size=(2, 512, 512, 3), dtype=np.uint8)
-    # strict parity: force f32 matmuls (on TPU the default is bf16 MXU passes)
+    # strict parity: force f32 matmuls (an accelerator may default to
+    # reduced-precision passes, TF32 on the GPU)
     with jax.default_matmul_precision("float32"):
         ours = embedder.embed_frames(frames)
 
@@ -82,7 +83,7 @@ def test_converted_tower_matches_torch(tmp_path, hidden_act):
     cos = (ours * theirs).sum(axis=-1)
     assert np.all(cos > 0.999999), cos
 
-    # production path (default precision, bf16 on TPU) stays embedding-faithful
+    # production path (default precision, possibly reduced on an accelerator) stays embedding-faithful
     fast = embedder.embed_frames(frames)
     assert np.all((fast * theirs).sum(axis=-1) > 0.9999)
 

@@ -419,7 +419,7 @@ def test_plan_chunks_matches_pack_blocks():
 def test_connection_pragmas_tuned(fresh_db, monkeypatch, tmp_path):
     """init_connection sets the page-cache/temp-store/synchronous pragmas
     (library-scale ingest thrashes SQLite's ~2 MiB default cache — measured
-    2x drain slowdown at 1M rows, artifacts/drain_pragma_ab.py) and
+    2x drain slowdown at 1M rows) and
     HVD_SQLITE_CACHE_MB tunes the cache. Per-connection only: the database
     FILE stays byte-compatible with reference-created ones."""
     # fresh_db was created before this test could scrub the env, so open a

@@ -3,7 +3,7 @@
 The framework's PDQ spec (vpdq/pdq_math.py) deliberately reassociates
 upstream PDQ's box-filter sums (fixed pairwise tree instead of a running
 add/subtract window) and replaces true divides with shared f32 reciprocal
-multiplies, so that CPU (C++/numpy) and TPU (XLA/Pallas) produce
+multiplies, so that CPU (C++/numpy) and the device (XLA) produce
 bit-identical hashes. This test measures what those reassociations cost
 against a literal upstream-order oracle (tests/upstream_pdq.py):
 

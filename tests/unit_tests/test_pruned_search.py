@@ -1,6 +1,6 @@
 """Exact scene-representative pruned search: reps, filter, verify, engine.
 
-The pruned route (VERDICT r2 item 1) must return pair sets IDENTICAL to
+The pruned route must return pair sets IDENTICAL to
 the brute-force engine at every threshold — the prune is a bound, not a
 heuristic. These tests pin:
 
@@ -145,8 +145,8 @@ def test_batch_matches_per_video(rng):
 
 
 # ---------------------------------------------------------------------------
-# Existence kernel (XLA twin — the Pallas kernel shares the body and is
-# exercised on TPU by the engine equality tests below)
+# Existence kernel (XLA twin — the Triton kernel is checked against it in
+# test_exists_triton.py)
 # ---------------------------------------------------------------------------
 
 
@@ -334,15 +334,18 @@ def test_pruned_equals_unpruned(rng, min_sim):
 
 
 def test_pruned_exact_with_tiny_drain_hbm_budget(rng):
-    """The drain shrinks its group to fit DRAIN_HBM_BUDGET_MB (10M-scale
-    masks are ~1 GB each); group_n=1 must stay exact — covers the G=1
-    extract trace, partial groups, and the per-mask top-k gather."""
+    """The drain shrinks its group to fit the memory plan's drain budget
+    (10M-scale masks are ~1 GB each); group_n=1 must stay exact — covers
+    the G=1 extract trace, partial groups, and the per-mask top-k gather."""
+    import dataclasses
+
     from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
 
     blobs = _mixed_corpus(rng)
     ref = sorted(TpuSearchEngine(force_segments=True).find_pairs(blobs, blobs, 60))
     eng = TpuSearchEngine(force_segments=True)
-    eng.DRAIN_HBM_BUDGET_MB = 1  # force group_n == 1
+    # force group_n == 1
+    eng.memory = dataclasses.replace(eng.memory, drain_bytes=1_000_000)
     got = sorted(eng.find_pairs_pruned(blobs, blobs, 60))
     assert got == ref
 
@@ -475,7 +478,7 @@ def test_pruned_radius_cap_cache_invalidation(rng):
     """Reps cached at one radius_cap must NOT serve a sweep at a smaller
     cap: the smaller cap's tolerance (31 + 2*cap) no longer covers the
     larger clustering radius, so the triangle bound breaks and true pairs
-    vanish silently (ADVICE r3 #1). The boundary construction makes the
+    vanish silently. The boundary construction makes the
     miss deterministic: leader distance exactly 79 = tol(24) > tol(8)."""
     from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
 
@@ -529,12 +532,17 @@ def test_prefilter_auto_policy(rng):
 
 def test_packed_cols_mode_matches(rng, monkeypatch):
     """Forcing the 10M-scale packed-column mode (columns stay bit-packed
-    in HBM, per-step device expansion) must not change any result."""
+    on the device, per-step device expansion) must not change any result."""
+    import dataclasses
+
+    from hydrus_video_deduplicator_tpu import device
     from hydrus_video_deduplicator_tpu.parallel.engine import TpuSearchEngine
 
     blobs = _mixed_corpus(rng)
     ref = sorted(TpuSearchEngine(force_segments=True).find_pairs(blobs, blobs, 20))
-    monkeypatch.setattr(TpuSearchEngine, "COL_PM1_HBM_BUDGET", 0)
+    monkeypatch.setattr(
+        device, "CPU_PLAN", dataclasses.replace(device.CPU_PLAN, col_pm1_bytes=0)
+    )
     packed = sorted(TpuSearchEngine(force_segments=True).find_pairs(blobs, blobs, 20))
     pruned = sorted(
         TpuSearchEngine(force_segments=True).find_pairs_pruned(blobs, blobs, 20)
@@ -543,52 +551,30 @@ def test_packed_cols_mode_matches(rng, monkeypatch):
     assert pruned == ref
 
 
-def test_hash_backend_auto_policy(monkeypatch):
-    """auto takes the device path only with a big batch, a real TPU, and a
-    measured link fast enough to feed 786 KB frames (VERDICT r2 item 3)."""
+@pytest.mark.parametrize(
+    "backend,platform,n_files,want",
+    [
+        ("native", "gpu", 10_000, "native"),
+        ("tpu", "cpu", 1, "tpu"),
+        ("auto", "gpu", 63, "native"),  # below TPU_HASH_MIN_BATCH
+        ("auto", "gpu", 64, "tpu"),
+        ("auto", "cpu", 10_000, "native"),
+    ],
+)
+def test_hash_backend_auto_policy(monkeypatch, backend, platform, n_files, want):
+    """auto takes the device path with a big batch on a platform that
+    hashes on the device (a GPU), with no probe of the link; explicit
+    backends are taken as given."""
     from types import SimpleNamespace
 
     import jax
 
     from hydrus_video_deduplicator_tpu.dedup import HydrusVideoDeduplicator as D
 
-    def ns(backend, mbps):
-        return SimpleNamespace(
-            hash_backend=backend,
-            TPU_HASH_MIN_BATCH=D.TPU_HASH_MIN_BATCH,
-            TPU_HASH_MIN_LINK_MBPS=D.TPU_HASH_MIN_LINK_MBPS,
-            HASH_PROBE_TIMEOUT_S=D.HASH_PROBE_TIMEOUT_S,
-            _device_link_mbps=lambda: mbps,
-        )
-
-    pick = D._pick_hash_backend
-    assert pick(ns("native", 1e9), 10_000) == "native"
-    assert pick(ns("tpu", 0.0), 1) == "tpu"
-    # auto, small batch: native regardless of link
-    assert pick(ns("auto", 1e9), D.TPU_HASH_MIN_BATCH - 1) == "native"
-
-    class FakeDev:
-        platform = "tpu"
-
-    monkeypatch.setattr(jax, "devices", lambda: [FakeDev()])
-    assert pick(ns("auto", 1e9), 10_000) == "tpu"
-    assert pick(ns("auto", 10.0), 10_000) == "native"  # tunnel-class link
-
-    # probe overruns its wall-clock budget -> native, without waiting
-    import time as _t
-
-    slow = ns("auto", 0.0)
-    slow.HASH_PROBE_TIMEOUT_S = 0.05
-    slow._device_link_mbps = lambda: (_t.sleep(5), 1e9)[1]
-    t0 = _t.time()
-    assert pick(slow, 10_000) == "native"
-    assert _t.time() - t0 < 2.0
-
-    class CpuDev:
-        platform = "cpu"
-
-    monkeypatch.setattr(jax, "devices", lambda: [CpuDev()])
-    assert pick(ns("auto", 1e9), 10_000) == "native"
+    assert D.TPU_HASH_MIN_BATCH == 64
+    monkeypatch.setattr(jax, "devices", lambda: [SimpleNamespace(platform=platform)])
+    ns = SimpleNamespace(hash_backend=backend, TPU_HASH_MIN_BATCH=D.TPU_HASH_MIN_BATCH)
+    assert D._pick_hash_backend(ns, n_files) == want
 
 
 def test_pruned_sharded_matches_local(rng):

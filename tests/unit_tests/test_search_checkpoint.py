@@ -1,4 +1,4 @@
-"""Per-chunk checkpointing of the batched TPU search (stage 4).
+"""Per-chunk checkpointing of the batched device search (stage 4).
 
 The reference marks each file's search-cache entry as it is searched, so
 an interrupt loses at most one file of work. The all-pairs engine searches

@@ -173,3 +173,37 @@ def test_engine_property_matches_oracle_hypothesis():
             assert got == expected, (force, min_sim)
 
     check()
+
+
+def test_similarity_block_xla_matches_tile_similarity(rng):
+    """The bucketed ±1 block program (ops/similarity.py) equals the packed
+    XLA tile the engine's bucketed route runs."""
+    import jax.numpy as jnp
+
+    from hydrus_video_deduplicator_tpu.ops.similarity import (
+        similarity_block_xla,
+        unpack_pm1_host,
+    )
+    from hydrus_video_deduplicator_tpu.parallel.engine import _tile_similarity
+
+    pa, pb = 4, 8
+    ra, cb = 6, 5
+    pk_a = rng.integers(0, 2**32, (ra, pa, 8), dtype=np.uint64).astype(np.uint32)
+    pk_b = rng.integers(0, 2**32, (cb, pb, 8), dtype=np.uint64).astype(np.uint32)
+    pk_b[1, :pa] = pk_a[2]  # a shared prefix: a partial match
+    pk_b[3, :pa] = pk_a[0]
+    pk_b[3, pa:] = pk_a[0]
+    ca = rng.integers(1, pa + 1, ra).astype(np.int32)
+    ca[0] = ca[2] = pa
+    cb_n = rng.integers(1, pb + 1, cb).astype(np.int32)
+    cb_n[1], cb_n[3] = pa, pb
+    got = np.asarray(
+        similarity_block_xla(
+            jnp.asarray(unpack_pm1_host(pk_a, ca)), jnp.asarray(ca[:, None]),
+            jnp.asarray(unpack_pm1_host(pk_b, cb_n)), jnp.asarray(cb_n[:, None]),
+            pa, pb,
+        )
+    )
+    want = np.asarray(_tile_similarity(pk_a, ca, pk_b, cb_n, pa, pb))
+    assert np.array_equal(got, want)
+    assert got[2, 1] == 100 and got[0, 3] == 100

@@ -56,7 +56,7 @@ def test_unpack_blocks_stacked_matches_host(rng):
     equals the host ±1 unpack row for row, with padding rows exact zero."""
     import jax.numpy as jnp
 
-    from hydrus_video_deduplicator_tpu.ops.similarity_pallas import unpack_pm1_host
+    from hydrus_video_deduplicator_tpu.ops.similarity import unpack_pm1_host
 
     items = [
         (i, rng.integers(0, 256, (1 + i % 9, 32), dtype=np.uint8).tobytes())

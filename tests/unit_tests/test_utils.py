@@ -88,3 +88,17 @@ def test_native_must_load_when_toolchain_exists():
     if shutil.which("g++") is None and shutil.which("cc") is None:
         pytest.skip("no C++ toolchain")
     assert native.is_available(), "toolchain present but native lib failed to load"
+
+
+def test_no_progress_stands_in_for_tqdm():
+    """dedup falls back to this when tqdm is not installed: the same
+    context manager, counters and iteration, silently."""
+    from hydrus_video_deduplicator_tpu.dedup_util import NoProgress
+
+    with NoProgress(total=5, desc="x", unit="file", colour="BLUE") as bar:
+        bar.update(2)
+        bar.update()
+        bar.n = 4
+        bar.refresh()
+    assert (bar.n, bar.total) == (4, 5)
+    assert list(NoProgress(range(3))) == [0, 1, 2]

@@ -5,7 +5,7 @@ float luma, sequential running-window box sums with true divides, torben
 median — as opposed to the framework's exact-by-construction spec
 (hydrus_video_deduplicator_tpu/vpdq/pdq_math.py), which reassociates the
 box sums into a fixed pairwise tree and replaces divides with shared f32
-reciprocal multiplies so CPU and TPU agree bitwise.
+reciprocal multiplies so the CPU and the device agree bitwise.
 
 Purpose: measure the hash-bit divergence those reassociations introduce
 (tests/unit_tests/test_pdq_upstream_fidelity.py). The reference's own
